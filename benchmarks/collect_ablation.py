@@ -1,7 +1,6 @@
 """Ablate the collect phase: where do the rollout milliseconds go?
 
-The round-3 profile puts collect at >= half the update step at the
-headline bench shape, but collect is a fused scan of many small parts.
+Collect is a fused scan of many small parts.
 This harness times jitted sub-programs that isolate each:
 
 - ``collect``        : the full RolloutManager.collect (store + obs-stats +
@@ -29,6 +28,8 @@ sys.path.insert(0, ".")
 
 import jax
 import jax.numpy as jnp
+
+from madrona_learn_tpu.utils.platform import compute_dtype
 from jax import lax, random
 
 try:
@@ -43,12 +44,12 @@ def main():
     args = parser.parse_args()
 
     import bench
-    from flax.core import FrozenDict
+    from madrona_learn_tpu.struct import FrozenDict
     from madrona_learn_tpu.ops.metrics import TrainingMetrics
     from madrona_learn_tpu.rollouts import RolloutManager, rollout_loop
 
     backend = jax.default_backend()
-    dtype = jnp.bfloat16 if backend == "tpu" else jnp.float32
+    dtype = compute_dtype()
     mgr = bench.build_manager(dtype)
     steps = bench.STEPS_PER_UPDATE
     policy_states = mgr.state.policy_states
@@ -127,7 +128,7 @@ def main():
         c, (rnn0, obs, random.PRNGKey(0)), sync_leaf, args.iters) * 1e3
 
     # -- sim-step-only scan --------------------------------------------------
-    from flax.core import frozen_dict
+    from madrona_learn_tpu.struct import freeze
 
     step_fn = mgr.rollout.step_fn
     zero_actions = {
@@ -138,7 +139,7 @@ def main():
 
     def sim_only(sim_state):
         def step(state, _):
-            out = frozen_dict.freeze(step_fn(frozen_dict.freeze({
+            out = freeze(step_fn(freeze({
                 "state": state, "actions": zero_actions,
                 "resets": resets, "sim_ctrl": sim_ctrl,
                 "pbt": FrozenDict(

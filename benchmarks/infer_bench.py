@@ -20,7 +20,9 @@ sys.path.insert(0, ".")
 
 import jax
 import jax.numpy as jnp
-from flax.core import FrozenDict
+
+from madrona_learn_tpu.utils.platform import compute_dtype
+from madrona_learn_tpu.struct import FrozenDict
 from jax import lax, random
 
 
@@ -53,7 +55,7 @@ def main():
     )
 
     backend = jax.default_backend()
-    dtype = jnp.bfloat16 if backend == "tpu" else jnp.float32
+    dtype = compute_dtype()
 
     P = args.policies
     N = args.agents
@@ -134,8 +136,7 @@ def main():
 
       def run_reduced(params, obs, rnn_states, key):
         out = run(params, obs, rnn_states, key)
-        # Reduce to scalars: fetching them is the only sync some remote
-        # backends honor (block_until_ready can return early over RPC).
+        # Reduce to scalars, which the timing loop fetches to sync.
         return jax.tree.map(
             lambda x: jnp.sum(x.astype(jnp.float32)), out)
 

@@ -21,7 +21,8 @@ import sys
 sys.path.insert(0, ".")
 
 import jax
-import jax.numpy as jnp
+
+from madrona_learn_tpu.utils.platform import compute_dtype
 from jax import lax, random
 
 try:
@@ -38,7 +39,7 @@ def main():
     import bench
 
     backend = jax.default_backend()
-    dtype = jnp.bfloat16 if backend == "tpu" else jnp.float32
+    dtype = compute_dtype()
     mgr = bench.build_manager(dtype)
     steps = bench.STEPS_PER_UPDATE
     policy_states = mgr.state.policy_states
@@ -61,9 +62,8 @@ def main():
     def scan_of(step_fn):
         # Args stay in sim layout ([N, ...]) and the chunk axis is added
         # INSIDE the jit: passing a pre-expanded [1, N, L, H] carry as a
-        # jit parameter forces a pathological layout that made identical
-        # scans 6.6x slower on v5e (81.6 vs 12.4 ms measured) — see the
-        # layout note in docs/kernels.md.
+        # jit parameter can force a slow layout on the carry; adding the
+        # axis inside the jit lets XLA choose it.
         def run(rnn_states, obs, key):
             obs_c = jax.tree.map(lambda x: x[None], obs)
             rnn_c = jax.tree.map(lambda x: x[None], rnn_states)

@@ -1,7 +1,7 @@
 """Ablate the learn phase with DIRECT sub-program timings.
 
-The collect/learn split by standalone-collect subtraction proved noisy
-across processes (BASELINE.md round 3); this harness instead compiles the
+The collect/learn split by standalone-collect subtraction is noisy across
+processes; this harness instead compiles the
 learn phase itself (the vmapped PPO optimize on a frozen RolloutData) and
 its inner pieces, all in one process:
 
@@ -15,14 +15,10 @@ its inner pieces, all in one process:
                  per-update total; the remainder of ``learn`` is optimizer
                  + weight projection + z-scores + minibatch gathers)
 
-Round-3 verdict (v5e, headline shape): standalone sub-program timing
-OVERSTATES — learn standalone measured 35.1 ms vs ~24.5 ms in-context
-(update 40.8 - collect 16.3), and mb_fwd (13.4 ms) timed SLOWER than
-mb_fwdbwd (12.4 ms). Large jit *parameters* receive default layouts
-(and standalone outputs must materialize to HBM), where the full update
-lets XLA choose layouts for the same tensors as internal values — the
-same class of artifact as the scan-carry layout pathology in
-docs/kernels.md. Use this harness for RELATIVE regressions of one
+Standalone sub-program timing can overstate: large jit *parameters*
+receive default layouts (and standalone outputs must materialize to
+device memory), where the full update lets XLA choose layouts for the
+same tensors as internal values. Use this harness for RELATIVE regressions of one
 sub-program over time, never for cross-program attribution; in-context
 attribution needs the XProf trace (benchmarks/profile_update.py).
 
@@ -38,6 +34,8 @@ sys.path.insert(0, ".")
 import jax
 import jax.numpy as jnp
 
+from madrona_learn_tpu.utils.platform import compute_dtype
+
 try:
     from _timing import time_compiled  # script-style run
 except ImportError:  # runpy from the repo root (campaign runner)
@@ -50,12 +48,12 @@ def main():
     args = parser.parse_args()
 
     import bench
-    from flax.core import FrozenDict
+    from madrona_learn_tpu.struct import FrozenDict
     from madrona_learn_tpu.ops.metrics import TrainingMetrics
     from madrona_learn_tpu.rollouts import RolloutManager
 
     backend = jax.default_backend()
-    dtype = jnp.bfloat16 if backend == "tpu" else jnp.float32
+    dtype = compute_dtype()
     mgr = bench.build_manager(dtype)
     algo = mgr.cfg.algo.setup()
     sync_leaf = lambda t: jax.device_get(jax.tree.leaves(t)[0])

@@ -5,8 +5,8 @@ backends and reports env-steps/s, quantifying what an external CPU-side
 Madrona-style engine costs relative to an in-graph env — the number an
 integrator needs when budgeting a real simulator port.
 
-On TPU the host-callback/FFI paths round-trip device<->host every sim step;
-on CPU they measure raw callback overhead.
+On a GPU the host-callback path round-trips device<->host every sim step
+(the FFI path is CPU-only); on CPU they measure raw callback overhead.
 
 Run: python benchmarks/native_sim_bench.py [--num-worlds 4096] [--updates 5]
 """
@@ -19,6 +19,8 @@ sys.path.insert(0, ".")
 
 import jax
 import jax.numpy as jnp
+
+from madrona_learn_tpu.utils.platform import compute_dtype
 import numpy as np
 
 
@@ -84,7 +86,7 @@ def main():
         NativeSimConfig, make_native_sim)
 
     backend = jax.default_backend()
-    dtype = jnp.bfloat16 if backend == "tpu" else jnp.float32
+    dtype = compute_dtype()
     print(f"backend={backend} num_worlds={args.num_worlds}")
 
     rates = {}

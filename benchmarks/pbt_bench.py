@@ -56,7 +56,7 @@ cfg = mlt.TrainConfig(
 
 t0=time.perf_counter()
 mgr = mlt.init_training(None, cfg, sim_fns, policy,
-    init_sim_ctrl=jnp.zeros((1,), jnp.int32), init_on_cpu=True)
+    init_sim_ctrl=jnp.zeros((1,), jnp.int32))
 print(f"init {time.perf_counter()-t0:.0f}s", flush=True)
 update = jax.jit(lambda m: m.update_iter(), donate_argnums=0)
 t0=time.perf_counter()

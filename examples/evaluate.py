@@ -29,6 +29,10 @@ from madrona_learn_tpu.models import (
     MLP,
     RecurrentBackboneEncoder,
 )
+from madrona_learn_tpu.utils.platform import (
+    compute_dtype,
+    use_checkout_compile_cache,
+)
 
 
 def build_policy(actions, dtype):
@@ -77,7 +81,8 @@ def main():
                         help="evaluate a single policy index")
     args = parser.parse_args()
 
-    dtype = jnp.bfloat16 if jax.default_backend() == "tpu" else jnp.float32
+    use_checkout_compile_cache()
+    dtype = compute_dtype()
     actions = {"move": mlt.DiscreteActionsConfig(actions_num_buckets=[5])}
     policy = build_policy(actions, dtype)
 

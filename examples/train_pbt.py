@@ -22,6 +22,7 @@ from madrona_learn_tpu.models import (
     DictActor,
     MLP,
 )
+from madrona_learn_tpu.utils.platform import use_checkout_compile_cache
 
 
 def get_episode_scores(episode_result):
@@ -37,6 +38,7 @@ def main():
     parser.add_argument("--eval-interval", type=int, default=10)
     args = parser.parse_args()
 
+    use_checkout_compile_cache()
     dtype = jnp.float32
     num_train, num_past = 4, 2
     episode_len = 16

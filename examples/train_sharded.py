@@ -1,13 +1,14 @@
 """Mesh-sharded PBT training: the full multi-chip recipe in one script.
 
-Runs the complete TPU-native stack: a (data x policy) mesh, PBT population
+Runs the complete multi-device stack: a (data x policy) mesh, PBT population
 with cross/past-play matchmaking (shard-local reorder kicks in
 automatically), sharded update step, periodic Elo tournaments, and async
 checkpointing.
 
-On real hardware, launch one process per host after `jax.distributed`
-initialization (parallel/distributed.py). Without a pod, exercise it on
-virtual CPU devices:
+On one host with several GPUs, run it as one process. Across hosts, launch
+one process per host after `jax.distributed` initialization
+(parallel/distributed.py). Without several devices, exercise it on virtual
+CPU devices:
 
     XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \
         python examples/train_sharded.py --data 4 --policy 2
@@ -36,6 +37,10 @@ from madrona_learn_tpu.parallel import (
     make_mesh,
     shard_training_manager,
 )
+from madrona_learn_tpu.utils.platform import (
+    compute_dtype,
+    use_checkout_compile_cache,
+)
 
 
 def main():
@@ -49,13 +54,14 @@ def main():
     args = parser.parse_args()
 
     distributed.init_multi_host()  # no-op off-cluster
+    use_checkout_compile_cache()
 
     mesh_cfg = mlt.MeshConfig(data=args.data, policy=args.policy)
     mesh = make_mesh(mesh_cfg)
     print(f"mesh: {mesh}")
 
     num_train, num_past = 4, 2
-    dtype = jnp.bfloat16 if jax.default_backend() == "tpu" else jnp.float32
+    dtype = compute_dtype()
 
     actions = {"move": mlt.DiscreteActionsConfig(actions_num_buckets=[5])}
     sim_fns = make_duel_env(ToyEnvConfig(

@@ -22,6 +22,10 @@ from madrona_learn_tpu.models import (
     MLP,
     RecurrentBackboneEncoder,
 )
+from madrona_learn_tpu.utils.platform import (
+    compute_dtype,
+    use_checkout_compile_cache,
+)
 
 
 def main():
@@ -33,7 +37,8 @@ def main():
     parser.add_argument("--tb-dir", type=str, default=None)
     args = parser.parse_args()
 
-    dtype = jnp.bfloat16 if jax.default_backend() == "tpu" else jnp.float32
+    use_checkout_compile_cache()
+    dtype = compute_dtype()
 
     actions = {"move": mlt.DiscreteActionsConfig(actions_num_buckets=[5])}
 
@@ -55,9 +60,7 @@ def main():
                 [obs["delta"], obs["time"]], axis=-1),
             encoder=RecurrentBackboneEncoder(
                 net=MLP(num_channels=256, num_layers=2, dtype=dtype),
-                # Fused Pallas BPTT kernel on TPU; jnp twin elsewhere.
-                rnn=LSTM(num_hidden_channels=256, num_layers=1, dtype=dtype,
-                         use_pallas=True),
+                rnn=LSTM(num_hidden_channels=256, num_layers=1, dtype=dtype),
             ),
         ),
         actor=DictActor(heads={

@@ -1,9 +1,9 @@
-"""madrona_learn_tpu: a TPU-native RL training framework.
+"""madrona_learn_tpu: an on-device RL training framework in JAX.
 
 Brand-new implementation with the capabilities of madrona-learn (studied in
 SURVEY.md): fully on-device PPO over batched simulators with recurrent /
 attention actor-critics, GAE, EMA normalization, distributional critics, and
-population-based training — designed mesh-first for TPU pod slices.
+population-based training — designed mesh-first, from one GPU to many.
 """
 
 from .config import (

@@ -6,13 +6,11 @@ algo_common.py:15-42). The advantage/return math lives in ``ops.gae``.
 
 from __future__ import annotations
 
-import flax
-from flax.core import FrozenDict
-
 from .config import TrainConfig
+from .struct import FrozenDict, PyTreeNode
 
 
-class HyperParams(flax.struct.PyTreeNode):
+class HyperParams(PyTreeNode):
     """Per-policy hyperparameters kept on-device so PBT can mutate them."""
 
     lr: float

@@ -1,13 +1,13 @@
 """Import trained checkpoints from the reference framework.
 
-The reference (shacklettbp/madrona-learn) and this framework share flax
+The reference (shacklettbp/madrona-learn) and this framework share linen
 param layouts for every module family EXCEPT the LSTM: the reference
 trains through flax's ``nn.OptimizedLSTMCell`` with eight per-gate denses
 (``ii/if/ig/io`` input kernels, no bias; ``hi/hf/hg/ho`` recurrent kernels
 with biases — reference: rnn.py:29-41), while this framework packs gates
 ``(i, f, g, o)`` along one axis with a single fused bias
 (models/lstm.py:_PackedLSTMLayer) so the sequence pass can hoist the input
-projection and run the fused Pallas kernel. The packed math is identical:
+projection out of the time scan. The packed math is identical:
 
     input_proj/kernel = concat(ii, if, ig, io)   # [F, 4H]
     recurrent_kernel  = concat(hi, hf, hg, ho)   # [H, 4H]

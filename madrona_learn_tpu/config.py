@@ -1,8 +1,8 @@
-"""Configuration dataclasses for the TPU-native trainer.
+"""Configuration dataclasses for the trainer.
 
 Capability parity with the reference config surface (reference: cfg.py:9-142):
 action-space configs, PBT population config with hyperparameter search spaces,
-the main ``TrainConfig``, and ``EvalConfig``. Re-designed for a mesh-first TPU
+the main ``TrainConfig``, and ``EvalConfig``. Re-designed for a mesh-first
 runtime: ``TrainConfig.mesh`` describes the device mesh the whole train step is
 sharded over (absent in the single-GPU reference).
 """
@@ -13,7 +13,8 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Union
 
 import jax.numpy as jnp
-from flax.core import FrozenDict
+
+from .struct import FrozenDict
 
 
 @dataclass(frozen=True)
@@ -102,7 +103,7 @@ class PBTConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """Logical device mesh for the whole resident train step (TPU-native addition).
+    """Logical device mesh for the whole resident train step.
 
     ``data`` shards the sim batch (env/agent instances); ``policy`` shards the
     PBT population (and its optimizer state); ``model`` optionally tensor-
@@ -118,11 +119,9 @@ class MeshConfig:
     model: int = 1
     # Run the learn phase as a manual shard_map region (data+policy axes)
     # instead of GSPMD. Semantics are identical (global minibatch
-    # composition; losses/gradients pmean over data), but the region's
-    # trace is manual over every mesh axis, so the Mosaic kernels (fused
-    # LSTM/GRU sequence, entity attention, layer norm) stay routed on
-    # multi-chip meshes — GSPMD cannot partition a Mosaic custom call, so
-    # on the GSPMD path they fall back to jnp twins. fp16 dynamic loss
+    # composition; losses/gradients pmean over data), but each data shard
+    # selects its stratified minibatch rows locally, so the rollout store
+    # is never replicated over ``data``. fp16 dynamic loss
     # scaling and advantage filtering / importance sampling are supported
     # inside the region, and so is model-axis TP (the region folds the
     # model axis into the minibatch row split — recurrent-sequence TP
@@ -131,8 +130,7 @@ class MeshConfig:
     # GSPMD). Non-dividing population / minibatch sizes are handled too
     # (weight-0 row padding with psum(sum)/psum(count) reductions), so
     # every configuration is served; manual_learn=False is the explicit
-    # escape hatch back to the GSPMD learn path (kernels run as jnp
-    # twins there). MEMORY note for the TP fold: inside the learn region
+    # escape hatch back to the GSPMD learn path. MEMORY note for the TP fold: inside the learn region
     # params are gathered over ``model`` (each device holds a full
     # parameter + optimizer-state copy of its policy shard during the
     # learn phase), so model>1 does NOT reduce learn-phase param memory;
@@ -141,8 +139,7 @@ class MeshConfig:
     # "The TP fold".
     manual_learn: bool = True
     # Run the collect phase as a manual shard_map region over ``data``
-    # (round 5): the single-step LSTM/GRU and entity-attention kernels stay
-    # routed at pod scale, and the collect-phase communication is exactly
+    # (round 5): the collect-phase communication is exactly
     # the explicit reductions (per-step obs-EMA moments + end-of-collect
     # metric merges — a few hundred bytes over ``data``). Auto-falls back
     # to GSPMD collect when the sim is not data-parallel (host-callback /
@@ -234,9 +231,6 @@ class TrainConfig:
     # mesh.data. Ignored by advantage filtering / importance sampling
     # (their selections are intrinsically global).
     minibatch_stratify: Optional[int] = None
-    # Route GAE through the fused Pallas-TPU kernel (ops/pallas/gae.py);
-    # requires a TPU backend. The jnp scan path is the default/fallback.
-    use_pallas_gae: bool = False
 
     @property
     def sim_batch_size(self) -> int:

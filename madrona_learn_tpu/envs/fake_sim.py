@@ -21,8 +21,9 @@ from dataclasses import dataclass
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
 from jax import random
+
+from .. import nn
 
 
 @dataclass(frozen=True)
@@ -129,11 +130,9 @@ class FakeNet(nn.Module):
 class FakeRNN(nn.Module):
     """Integer recurrence: y = x0 + h; h' = h + 2*x0 (exactly recomputable)."""
 
-    @nn.nowrap
     def init_recurrent_state(self, N):
         return jnp.zeros((N, 1), jnp.int32)
 
-    @nn.nowrap
     def clear_recurrent_state(self, rnn_states, should_clear):
         return jnp.where(should_clear, jnp.zeros((), jnp.int32), rnn_states)
 

@@ -5,8 +5,8 @@ exists for: the native engine is opaque to the trainer and enters the jitted
 rollout loop only as step callables (reference: rollouts.py:905-947, where
 Madrona's C++/CUDA engine appears as an XLA custom call). Here the native sim
 is the C++ gridworld in native/batch_sim.cpp, bridged with
-``jax.pure_callback`` — the host-callback boundary a TPU-resident program
-uses to talk to a CPU-side simulator. The C++ step is stateless (all state
+``jax.pure_callback`` — the host-callback boundary a device-resident
+program uses to talk to a CPU-side simulator; it works on every platform. The C++ step is stateless (all state
 arrays flow through the callback), so the training loop stays functionally
 pure, checkpointable, and deterministic.
 

@@ -7,9 +7,10 @@ Madrona-style engine uses on CPU-attached backends (the reference's engine
 enters the jitted rollout loop as exactly such a custom call; reference:
 rollouts.py:929 + SURVEY.md section 2b).
 
-CPU-platform only: XLA runs the handler on the host. On TPU deployments use
-the ``pure_callback`` bridge (envs/native_sim.py) or keep the env on-device
-(envs/toy_env.py).
+CPU-platform only: XLA runs the handler on the host, and construction
+raises on any other backend. On a GPU use the ``pure_callback`` bridge
+(envs/native_sim.py) or keep the env on-device (envs/toy_env.py); a CUDA
+step handler is ROADMAP item B1.
 """
 
 from __future__ import annotations
@@ -49,7 +50,17 @@ def _ensure_registered():
 
 
 def make_native_sim_ffi(cfg: NativeSimConfig):
-    """``sim_fns`` whose step is an XLA custom call into the C++ simulator."""
+    """``sim_fns`` whose step is an XLA custom call into the C++ simulator.
+
+    Raises RuntimeError off the CPU backend: only a CPU FFI target is
+    registered, so a GPU program could not lower the call."""
+    backend = jax.default_backend()
+    if backend != "cpu":
+        raise RuntimeError(
+            f"make_native_sim_ffi registers a CPU-only FFI target and cannot "
+            f"run on the {backend!r} backend; use envs.make_native_sim (the "
+            f"pure_callback bridge) there. A CUDA step handler is ROADMAP "
+            f"item B1.")
     _ensure_registered()
 
     # init reuses the ctypes path (runs once, outside the hot loop).

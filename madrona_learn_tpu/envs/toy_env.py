@@ -70,9 +70,8 @@ def _hash_draw2(base, salts, grid_size):
     statistical quality, tuned for the rollout hot loop: one shared
     multiply-xor chain, salts broadcast over the last axis (no
     concatenate), and a multiply-shift range map instead of an integer
-    modulo (TPU has no fast int division). Costs ~9% of headline e2e if
-    written carelessly (round-5 A/B: the first version with 4 separate
-    hash chains + %% + concats read 13.08M vs 14.44M env-steps/s).
+    modulo. The hash runs on every rollout step, so its op count shows
+    up end to end.
     """
     h = base ^ jnp.asarray(salts)  # [B, 2]
     h = h ^ (h >> 15)

@@ -1,7 +1,7 @@
 """ActorCritic module and backbone composition.
 
 Capability parity with the reference actor-critic layer (reference:
-actor_critic.py:13-303): an ``ActorCritic`` flax module exposing four apply
+actor_critic.py:13-303): an ``ActorCritic`` module exposing four apply
 methods — ``rollout`` (sample/argmax actions + value), ``update`` (sequence
 forward scoring stored actions), ``actor_only`` and ``critic_only`` — over
 pluggable backbones.
@@ -11,8 +11,8 @@ Backbones are organized as *towers*: a shared obs prefix feeds one
 outputs drive the actor and critic heads. Encoders are either feed-forward
 (``BackboneEncoder``, empty recurrent state) or recurrent
 (``RecurrentBackboneEncoder``: net -> rnn, with a time-axis ``sequence``
-path for BPTT). Recurrent-state init/clear are ``nn.nowrap`` helpers so the
-rollout engine owns state placement (sim-order, batch-leading — see
+path for BPTT). Recurrent-state init/clear are plain methods, callable on
+the unbound module, so the rollout engine owns state placement (sim-order, batch-leading — see
 models/lstm.py).
 """
 
@@ -21,9 +21,9 @@ from __future__ import annotations
 from typing import Callable, Union
 
 import jax
-from flax import linen as nn
-from flax.core import FrozenDict, frozen_dict
 
+from .. import nn
+from ..struct import FrozenDict
 from ..utils.profile import profile
 
 
@@ -45,11 +45,9 @@ class Backbone(nn.Module):
     def _flatten_obs_sequence(self, obs):
         return _drop_time(obs)
 
-    @nn.nowrap
     def init_recurrent_state(self, N):
         raise NotImplementedError
 
-    @nn.nowrap
     def clear_recurrent_state(self, recurrent_states, should_clear):
         raise NotImplementedError
 
@@ -59,17 +57,12 @@ class ActorCritic(nn.Module):
     actor: nn.Module
     critic: nn.Module
 
-    @nn.nowrap
     def init_recurrent_state(self, N):
         return self.backbone.init_recurrent_state(N)
 
-    @nn.nowrap
     def clear_recurrent_state(self, recurrent_states, should_clear):
         return self.backbone.clear_recurrent_state(
             recurrent_states, should_clear)
-
-    def setup(self):
-        pass
 
     # -- single-step paths (rollout-time) ------------------------------------
 
@@ -86,7 +79,7 @@ class ActorCritic(nn.Module):
             results = {"actions": dists.best()}
         results["critic"] = self.critic(critic_feats, train=train)
 
-        return frozen_dict.freeze(results), rnn_out
+        return FrozenDict(results), rnn_out
 
     def actor_only(self, rnn_states_in, obs_in, train=False):
         feats, rnn_out = self.backbone.actor_only(
@@ -134,11 +127,9 @@ class BackboneEncoder(nn.Module):
 
     net: nn.Module
 
-    @nn.nowrap
     def init_recurrent_state(self, N):
         return ()
 
-    @nn.nowrap
     def clear_recurrent_state(self, recurrent_states, should_clear):
         return ()
 
@@ -151,108 +142,25 @@ class BackboneEncoder(nn.Module):
 
 
 class RecurrentBackboneEncoder(nn.Module):
-    """net -> rnn tower with a scan-based sequence path for BPTT.
-
-    ``use_fused_step=True`` routes the single-step (rollout-time) forward
-    through one Pallas kernel fusing the whole MLP+LSTM trunk
-    (ops/pallas/policy_step.py) when the tower matches the supported
-    pattern (``MLP`` net + single-layer ``LSTM``); the collect phase is
-    dominated by exactly this forward's kernel-boundary HBM traffic
-    (benchmarks/collect_ablation.py). Off-TPU (and under multi-device
-    GSPMD traces, where Mosaic custom calls can't be partitioned —
-    docs/kernels.md) the jnp twin runs instead, keeping the same math on
-    every backend. The param tree is identical either way — the fused path
-    only READS the module params — so checkpoints stay interchangeable.
-    The update-time sequence pass is unchanged; its LayerNorm rounds
-    intermediates where the fused step computes the normalize+affine chain
-    in fp32, a <=1-ulp(bf16) forward divergence covered by
-    tests/test_fused_policy_step.py's rollout-vs-update ratio bound.
-    """
+    """net -> rnn tower with a scan-based sequence path for BPTT."""
 
     net: nn.Module
     rnn: nn.Module
-    use_fused_step: bool = False
     # Rematerialize the trunk net in the update-pass backward instead of
-    # stashing its intermediate activations (jax.checkpoint via flax's
-    # lifted remat; recomputes the net forward during the backward —
-    # trades cheap MXU work for HBM stash traffic). E2e A/B on v5e at
-    # the headline shape (256-wide 2-layer MLP): remat LOSES ~4%
-    # (14.02-14.15M vs the 14.76M no-remat baseline, same session) — the
-    # trunk's stash is small at this width and the recompute breaks the
-    # backward fusion chain. Kept as a knob for activation-heavy trunks
-    # (wide/deep MLPs, large entity encoders) where the stash dominates;
-    # numerics are unchanged either way (update == no-remat update,
-    # asserted on CPU).
+    # stashing its intermediate activations (jax.checkpoint; recomputes the
+    # net forward during the backward, trading matmul work for activation
+    # memory traffic). For activation-heavy trunks (wide/deep MLPs, large
+    # entity encoders) where the stash dominates; numerics are unchanged
+    # either way (update == no-remat update, asserted on CPU).
     remat_trunk_sequence: bool = False
 
-    @nn.nowrap
     def init_recurrent_state(self, N):
         return self.rnn.init_recurrent_state(N)
 
-    @nn.nowrap
     def clear_recurrent_state(self, recurrent_states, should_clear):
         return self.rnn.clear_recurrent_state(recurrent_states, should_clear)
 
-    def setup(self):
-        pass
-
-    def _fused_step_applicable(self, inputs):
-        import jax.numpy as jnp
-
-        from ..ops.pallas.policy_step import policy_step_supported
-        from .common import MLP
-        from .lstm import LSTM
-
-        if not (isinstance(self.net, MLP) and isinstance(self.rnn, LSTM)
-                and self.rnn.num_layers == 1 and len(inputs) == 1):
-            return False
-        # The kernel assumes one dtype and one width through the whole
-        # trunk (LN scales reshape to the LSTM hidden), and at least one
-        # MLP layer; mismatched towers fall back to the flax path instead
-        # of crashing or silently changing precision.
-        if not (self.net.num_layers >= 1
-                and self.net.num_channels == self.rnn.num_hidden_channels
-                and self.net.dtype == self.rnn.dtype):
-            return False
-        # Consistency with the update-time sequence pass: the kernel runs
-        # fp32 precise-gates math, which the bf16 sequence pass only
-        # matches when LSTM(use_pallas=True) (models/lstm.py). In fp32 the
-        # two conventions coincide exactly.
-        if not (self.rnn.use_pallas or self.rnn.dtype == jnp.float32):
-            return False
-        x = inputs[0]
-        return (isinstance(x, jax.Array) and x.ndim == 2
-                and policy_step_supported(
-                    self.rnn.num_hidden_channels, x.shape[-1],
-                    self.rnn.dtype))
-
-    def _fused_step(self, rnn_states_in, x):
-        from ..ops.pallas.policy_step import (
-            fused_policy_step, fused_policy_step_reference)
-        from ..ops.pallas.runtime import pallas_backend_ok
-
-        params = self.variables["params"]
-        net_p, rnn_p = params["net"], params["rnn"]
-        mlp = [
-            (net_p[f"Dense_{i}"]["kernel"],
-             net_p[f"LayerNorm_{i}"]["impl"]["scale"],
-             net_p[f"LayerNorm_{i}"]["impl"]["bias"])
-            for i in range(self.net.num_layers)
-        ]
-        cell = rnn_p["layer_0"]
-        wi = cell["input_proj"]["kernel"]
-        wr, b = cell["recurrent_kernel"], cell["bias"]
-
-        c_in, h_in = rnn_states_in  # [N, 1, H]
-        fn = (fused_policy_step if pallas_backend_ok()
-              else fused_policy_step_reference)
-        out, (c, h) = fn(x, mlp, wi, wr, b, c_in[:, 0], h_in[:, 0])
-        return out, (c[:, None], h[:, None])
-
     def __call__(self, rnn_states_in, *inputs, train):
-        if (self.use_fused_step and not self.is_initializing()
-                and self._fused_step_applicable(inputs)):
-            return self._fused_step(rnn_states_in, inputs[0])
         features = self.net(*inputs, train=train)
         return self.rnn(rnn_states_in, features, train)
 
@@ -262,9 +170,8 @@ class RecurrentBackboneEncoder(nn.Module):
         # then reshaped to [T, N] for the recurrent scan.
         T, N = sequence_ends.shape[0:2]
         if self.remat_trunk_sequence and not self.is_initializing():
-            net_out = nn.remat(
-                lambda mdl, x: mdl(x, train=train))(self.net,
-                                                    flattened_inputs)
+            net_out = jax.checkpoint(
+                lambda x: self.net(x, train=train))(flattened_inputs)
         else:
             net_out = self.net(flattened_inputs, train=train)
         features_seq = _merge_time(net_out, T, N)
@@ -286,17 +193,12 @@ class BackboneShared(Backbone):
     prefix: Union[nn.Module, Callable]
     encoder: nn.Module
 
-    @nn.nowrap
     def init_recurrent_state(self, N):
         return self.encoder.init_recurrent_state(N)
 
-    @nn.nowrap
     def clear_recurrent_state(self, recurrent_states, should_clear):
         return self.encoder.clear_recurrent_state(
             recurrent_states, should_clear)
-
-    def setup(self):
-        pass
 
     def __call__(self, rnn_states_in, obs_in, train):
         feats, rnn_out = self.encoder(
@@ -328,22 +230,16 @@ class BackboneSeparate(Backbone):
     actor_encoder: nn.Module
     critic_encoder: nn.Module
 
-    @nn.nowrap
     def _towers(self):
         return (self.actor_encoder, self.critic_encoder)
 
-    @nn.nowrap
     def init_recurrent_state(self, N):
         return tuple(t.init_recurrent_state(N) for t in self._towers())
 
-    @nn.nowrap
     def clear_recurrent_state(self, recurrent_states, should_clear):
         return tuple(
             t.clear_recurrent_state(s, should_clear)
             for t, s in zip(self._towers(), recurrent_states))
-
-    def setup(self):
-        pass
 
     def __call__(self, rnn_states_in, obs_in, train):
         processed = self.prefix(obs_in, train=train)

@@ -4,13 +4,9 @@ Capability parity with the reference entity net (reference: models.py:59-97,
 451-540): per-entity-type embeddings, multi-head self-attention over the
 entity axis, mean-pool, and a feed-forward residual block.
 
-TPU notes: ``SelfAttention`` pads the entity axis to a multiple of 8 (f32
-sublane) so the QK^T / PV contractions tile onto the MXU without relayout.
-Attention routes through the fused Pallas kernel
-(`ops/pallas/attention.py`, masked via static valid_len) on TPU — measured
-faster than the XLA path on forwards up to ~128 entities, slightly slower
-on fwd+bwd; both the rollout and update passes use the same path so PPO
-ratios start at exactly 1 (numbers in benchmarks/attention_bench.py).
+Attention runs through ``jax.nn.dot_product_attention`` (XLA's fused
+attention, or cuDNN's where it applies) for both the rollout and the update
+pass, so the PPO ratio starts at exactly 1.
 """
 
 from __future__ import annotations
@@ -20,15 +16,9 @@ from typing import Callable
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import linen as nn
 
+from .. import nn
 from .common import LayerNorm
-
-
-# The shared kernel-routing gate lives in ops/pallas/runtime.py; model
-# call sites (and rollouts' GAE routing) import THIS alias so tests and
-# benchmarks keep one monkeypatch point.
-from ..ops.pallas.runtime import pallas_backend_ok as _pallas_backend_ok
 
 
 class SelfAttention(nn.Module):
@@ -36,86 +26,14 @@ class SelfAttention(nn.Module):
     qkv_features: int
     out_features: int
     dtype: jnp.dtype
-    use_pallas: bool = False
 
     @nn.compact
     def __call__(self, x, train=False):
-        seq_len = x.shape[-2]
-        # Pad entity axis up to the sublane multiple so the contraction tiles
-        # cleanly; masked entities attend with -inf bias.
-        pad_to = 8
-        padded_len = -(seq_len // -pad_to) * pad_to
-        pad = padded_len - seq_len
-
-        # When enabled, the kernel serves BOTH the rollout and the update
-        # forward: PPO's importance ratio must start at exactly 1, so the
-        # log-probs the update pass recomputes have to match the rollout's
-        # bit-for-bit — mixing kernel (f32 softmax) and XLA (compute-dtype)
-        # attention across the two passes would bias every ratio at epoch 0.
-        #
-        # Auto-route by entity count: up to 256 the single-pass kernel
-        # (whole [S, S] score tile in VMEM) wins; past 256 that tile blows
-        # scoped VMEM and the flash variant takes over. With the
-        # flash-structured backward (round 4) flash no longer loses to XLA
-        # at large S — constant-token sweep on v5e, two process runs
-        # (benchmarks/attention_bench.py --kernels): forward parity
-        # within noise (S=512 1.141/1.125 vs XLA 1.220/1.119 ms; S=1024
-        # 2.126 vs 2.119), consistent fwd+bwd win (S=512 1.769/1.692 vs
-        # 1.786/1.776; S=1024 3.523 vs 4.029 — the backward never
-        # materializes the [B, H, S, S] score tensor XLA's autodiff
-        # stashes). Round 3, with the twin-recompute backward, routed
-        # large sets to XLA; the training path dominated by the backward
-        # is what changed the verdict. The flash route is benchmarked up
-        # to S=1024; entity sets beyond that run the same kernel in an
-        # unmeasured regime (grid work grows as S^2 per batch block) —
-        # re-run benchmarks/attention_bench.py --kernels with a wider
-        # sweep before relying on it at S >> 1024.
-        use_pallas = self.use_pallas and _pallas_backend_ok()
-
-        if use_pallas:
-            if padded_len <= 256:
-                from ..ops.pallas.attention import mha as pallas_mha
-            else:
-                from ..ops.pallas.attention import (
-                    mha_flash as pallas_mha)
-
-            def attention_fn(q, k, v, bias=None, mask=None, **kwargs):
-                # Padding is static, so the kernel's static valid_len mask
-                # replaces flax's materialized [S, S] boolean mask. Extra
-                # leading batch dims fold into the kernel's batch axis.
-                lead = q.shape[:-3]
-                if len(lead) != 1:
-                    fold = lambda t: t.reshape((-1,) + t.shape[len(lead):])
-                    out = pallas_mha(fold(q), fold(k), fold(v),
-                                     valid_len=seq_len)
-                    return out.reshape(lead + out.shape[1:])
-                return pallas_mha(q, k, v, valid_len=seq_len)
-        else:
-            attention_fn = nn.attention.dot_product_attention
-
-        if pad > 0:
-            x_p = jnp.pad(x, [(0, 0)] * (x.ndim - 2) + [(0, pad), (0, 0)])
-            if use_pallas:
-                attn_mask = None  # kernel masks padded keys via valid_len
-            else:
-                mask = jnp.ones(
-                    (padded_len,), jnp.bool_).at[seq_len:].set(False)
-                attn_mask = mask[None, None, :] & mask[None, :, None]
-            out = nn.MultiHeadDotProductAttention(
-                num_heads=self.num_heads,
-                qkv_features=self.qkv_features,
-                out_features=self.out_features,
-                dtype=self.dtype,
-                attention_fn=attention_fn,
-            )(x_p, mask=attn_mask)
-            return out[..., :seq_len, :]
-
         return nn.MultiHeadDotProductAttention(
             num_heads=self.num_heads,
             qkv_features=self.qkv_features,
             out_features=self.out_features,
             dtype=self.dtype,
-            attention_fn=attention_fn,
         )(x)
 
 
@@ -134,18 +52,6 @@ class EntitySelfAttentionNet(nn.Module):
     # Per the paper each entity embedding concats the self features; redundant
     # if observations are already egocentric.
     embed_concat_self: bool = False
-    # Route attention through the fused Pallas kernel (both rollout and
-    # update passes — see SelfAttention for why they must agree). Measured
-    # on v5e (benchmarks/attention_bench.py): rollout forward +7.8% at the
-    # flagship 16-entity shape and +15% at 128 entities; training fwd+bwd
-    # -7% (backward recomputes through the jnp twin). Default ON: the
-    # rollout pass runs steps_per_update times per collected step while the
-    # update touches each step num_epochs times, so the forward win
-    # dominates at typical epoch counts. Entity sets past 256 auto-route
-    # to the flash kernel, whose flash-structured backward beats XLA
-    # autodiff there (see SelfAttention); disable manually for epoch-heavy
-    # small-set configs.
-    use_pallas: bool = True
 
     @nn.compact
     def __call__(self, x_tree, train):
@@ -158,7 +64,7 @@ class EntitySelfAttentionNet(nn.Module):
                 name=name,
             )(x)
             o = LayerNorm(dtype=self.dtype)(o)
-            return nn.leaky_relu(o)
+            return jax.nn.leaky_relu(o)
 
         x_tree, x_self = x_tree.pop("self")
         x_self = x_self[..., None, :]
@@ -180,7 +86,6 @@ class EntitySelfAttentionNet(nn.Module):
             qkv_features=self.num_embed_channels,
             out_features=self.num_out_channels,
             dtype=self.dtype,
-            use_pallas=self.use_pallas,
         )(entities, train=train)
 
         if self.num_embed_channels != self.num_out_channels:
@@ -200,7 +105,7 @@ class EntitySelfAttentionNet(nn.Module):
             name="ff_0",
         )(pooled)
         ff = LayerNorm(dtype=self.dtype)(ff)
-        ff = nn.leaky_relu(ff)
+        ff = jax.nn.leaky_relu(ff)
         ff = nn.Dense(
             self.num_out_channels,
             use_bias=False,
@@ -208,7 +113,7 @@ class EntitySelfAttentionNet(nn.Module):
             kernel_init=self.dense_init,
             name="ff_1",
         )(ff)
-        ff = nn.leaky_relu(ff)
+        ff = jax.nn.leaky_relu(ff)
 
         out = pooled + ff
         return LayerNorm(dtype=self.dtype)(out)

@@ -1,11 +1,10 @@
 """Shared building-block modules: layer norm and MLP trunks.
 
 Capability parity with the reference building blocks (reference:
-models.py:46-120). ``LayerNorm`` wraps the flax implementation behind a stable
-param path (``.../LayerNorm_k/impl/{scale,bias}``) because the PPO update
-renormalizes those parameters by name (see ppo.py weight projection); the
-Pallas-TPU fused kernel can be swapped in under the same path via
-``use_pallas``.
+models.py:46-120). ``LayerNorm`` keeps its parameters under a stable path
+(``.../LayerNorm_k/impl/{scale,bias}``) because the PPO update renormalizes
+those parameters by name (see ppo.py weight projection) and checkpoints
+read them.
 """
 
 from __future__ import annotations
@@ -15,48 +14,16 @@ from typing import Callable
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import linen as nn
+
+from .. import nn
 
 
 class LayerNorm(nn.Module):
     dtype: jnp.dtype
-    use_pallas: bool = False
 
     @nn.compact
     def __call__(self, x):
-        from ..ops.pallas.runtime import pallas_backend_ok
-
-        # Gate like every kernel (single-device TPU or fully-manual
-        # shard_map; jnp/flax fallback elsewhere — Mosaic custom calls
-        # can't be auto-partitioned, docs/kernels.md). Both branches
-        # create the SAME param tree (``impl/{scale,bias}``): the PPO
-        # update renormalizes those parameters by path (ppo.py
-        # renorm_layernorms), and checkpoints must stay interchangeable
-        # across the gate.
-        if self.use_pallas and pallas_backend_ok():
-            from ..ops.pallas.layer_norm import layer_norm as pl_layer_norm
-
-            return _PallasLNImpl(fn=pl_layer_norm, name="impl")(x)
-        with jax.numpy_dtype_promotion("standard"):
-            return nn.LayerNorm(name="impl", dtype=self.dtype)(x)
-
-
-class _PallasLNImpl(nn.Module):
-    """Pallas layer-norm owning its params under the ``impl`` scope, with
-    flax ``nn.LayerNorm``'s exact param names/shapes/init."""
-
-    fn: Callable
-
-    @nn.compact
-    def __call__(self, x):
-        dim = x.shape[-1]
-        scale = self.param(
-            "scale", jax.nn.initializers.constant(1), (dim,), jnp.float32)
-        bias = self.param(
-            "bias", jax.nn.initializers.constant(0), (dim,), jnp.float32)
-        orig_shape = x.shape
-        out = self.fn(x.reshape(-1, dim), scale, bias)
-        return out.reshape(orig_shape).astype(x.dtype)
+        return nn.LayerNorm(name="impl", dtype=self.dtype)(x)
 
 
 class MLP(nn.Module):
@@ -78,5 +45,5 @@ class MLP(nn.Module):
                 dtype=self.dtype,
             )(x)
             x = LayerNorm(dtype=self.dtype)(x)
-            x = nn.relu(x)
+            x = jax.nn.relu(x)
         return x

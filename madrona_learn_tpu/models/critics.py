@@ -13,9 +13,8 @@ from typing import Callable, Dict
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import linen as nn
-from flax.core import FrozenDict
 
+from .. import nn
 from ..config import DiscreteActionsConfig
 from ..ops.dists import (
     DictActionDistributions,
@@ -24,6 +23,7 @@ from ..ops.dists import (
     HLGaussTwoPartDist,
     SymExpTwoHotDistribution,
 )
+from ..struct import FrozenDict
 
 
 class DenseLayerDiscreteActor(nn.Module):

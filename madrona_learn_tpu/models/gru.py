@@ -5,16 +5,14 @@ standard lighter-state alternative (one [N, L, H] buffer instead of two —
 half the recurrent-state memory and sim<->policy reorder traffic, ~25% fewer
 recurrent FLOPs). Drop-in for ``LSTM`` anywhere a backbone takes an ``rnn``:
 same ``init_recurrent_state`` / ``clear_recurrent_state`` / ``__call__`` /
-``sequence`` surface, same batch-leading TPU state layout and
-step-then-reset done-mask ordering.
+``sequence`` surface, same batch-leading state layout and step-then-reset
+done-mask ordering.
 
-Round-2 restructure (cuDNN-style, mirroring models/lstm.py): gates are
-packed ``[r | z | n]`` with separate input/recurrent kernels, so the
-sequence pass hoists each layer's input projection out of the BPTT scan as
-ONE whole-sequence matmul, and ``use_pallas=True`` routes the scan through
-the fused Mosaic kernel (ops/pallas/gru.py) on TPU with fp32 gate math on
-both the single-step and sequence paths. Gate equations follow flax's
-``nn.GRUCell`` (linear-before-reset):
+Gates are packed ``[r | z | n]`` with separate input/recurrent kernels, so
+the sequence pass hoists each layer's input projection out of the BPTT scan
+as ONE whole-sequence matmul. The single-step and sequence paths both run
+``gru_step`` (fp32 gate math from storage-dtype operands), so they agree
+bit for bit. Gate equations follow the linear-before-reset GRU cell:
 
     r = sigmoid(x_r + h @ W_hr);  z = sigmoid(x_z + h @ W_hz)
     n = tanh(x_n + r * (h @ W_hn + b_hn));  h' = (1 - z) * n + z * h
@@ -24,9 +22,38 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
+from jax import lax
 
-__all__ = ["GRU"]
+from .. import nn
+
+__all__ = ["GRU", "gru_step", "gru_sequence"]
+
+
+def gru_step(x_proj, h, wh, bias_h):
+    """One GRU step from the projected input ``x_proj`` [N, 3H]; returns
+    the new h in the storage dtype of ``x_proj``."""
+    f32 = jnp.float32
+    H = h.shape[-1]
+    hp = jnp.dot(h.astype(wh.dtype), wh, preferred_element_type=f32)
+    xp = x_proj.astype(f32)
+    hn_lin = hp[..., 2 * H:] + bias_h.astype(f32)
+    r = jax.nn.sigmoid(xp[..., :H] + hp[..., :H])
+    z = jax.nn.sigmoid(xp[..., H:2 * H] + hp[..., H:2 * H])
+    n = jnp.tanh(xp[..., 2 * H:] + r * hn_lin)
+    return ((1.0 - z) * n + z * h.astype(f32)).astype(x_proj.dtype)
+
+
+def gru_sequence(x_proj, ends, wh, bias_h, h0, unroll=1):
+    """[T, N, 3H] projected inputs -> [T, N, H] outputs, clearing the
+    state after every step whose ``ends`` [T, N, 1] flag is set."""
+
+    def step(h, inputs):
+        xp, end = inputs
+        h = gru_step(xp, h, wh, bias_h)
+        return jnp.where(end, jnp.zeros((), h.dtype), h), h
+
+    _, ys = lax.scan(step, h0, (x_proj, ends), unroll=unroll)
+    return ys
 
 
 class _PackedGRULayer(nn.Module):
@@ -59,29 +86,15 @@ class _PackedGRULayer(nn.Module):
         self.bias_h = self.param(
             "bias_h", jax.nn.initializers.zeros, (H,))
 
-    def __call__(self, h, x, x_proj=None):
-        if x_proj is None:
-            x_proj = self.project_input(x)
+    def weights(self):
+        """(recurrent kernel, candidate-gate recurrent bias) in the compute
+        dtype."""
+        return (self.recurrent_kernel.astype(self.dtype),
+                self.bias_h.astype(self.dtype))
 
-        f32 = jnp.float32
-        H = self.hidden
-        wh = self.recurrent_kernel.astype(self.dtype)
-        hp = jnp.dot(h.astype(self.dtype), wh, preferred_element_type=f32)
-        xp = x_proj.astype(f32)
-        # Round bias_h to the storage dtype first — the exact rounding
-        # point of the fused kernel and the jnp twin, so the single-step
-        # rollout forward and the sequence update forward agree bit-for-bit
-        # in bf16 (PPO ratios must start at 1).
-        hn_lin = hp[..., 2 * H:] + self.bias_h.astype(self.dtype).astype(f32)
-        r = jax.nn.sigmoid(xp[..., :H] + hp[..., :H])
-        z = jax.nn.sigmoid(xp[..., H:2 * H] + hp[..., H:2 * H])
-        n = jnp.tanh(xp[..., 2 * H:] + r * hn_lin)
-        new_h = ((1.0 - z) * n + z * h.astype(f32)).astype(self.dtype)
-        return new_h.astype(h.dtype), new_h
-
-    def project_input(self, x):
-        """x @ W_i + b_i as one matmul (hoistable before the scan)."""
-        return self.input_proj(x)
+    def __call__(self, h, x):
+        new_h = gru_step(self.input_proj(x), h, *self.weights())
+        return new_h, new_h
 
 
 class GRU(nn.Module):
@@ -90,18 +103,11 @@ class GRU(nn.Module):
     dtype: jnp.dtype
     # See LSTM.seq_unroll.
     seq_unroll: int = 1
-    # Route the BPTT sequence pass through the fused Pallas kernel
-    # (ops/pallas/gru.py) on TPU; off-TPU the sequence pass uses the
-    # kernel's jnp twin (same math). The single-step path always runs the
-    # same fp32 gate math, so rollout and update forwards agree.
-    use_pallas: bool = False
 
-    @nn.nowrap
     def init_recurrent_state(self, N):
         shape = (N, self.num_layers, self.num_hidden_channels)
         return jnp.zeros(shape, self.dtype)
 
-    @nn.nowrap
     def clear_recurrent_state(self, rnn_states, should_clear):
         # should_clear: [N, 1]; broadcasts over (layer, hidden).
         mask = should_clear[..., None]
@@ -126,36 +132,15 @@ class GRU(nn.Module):
 
     def sequence(self, start_hiddens, seq_ends, seq_x, train):
         """[T, N, F] features -> [T, N, L*H] outputs, clearing state after
-        any step whose ``seq_ends`` flag is set (episode boundary).
-
-        Layer-by-layer: each layer's input projection runs as ONE
-        whole-sequence matmul before its time scan (fused kernel on TPU
-        when ``use_pallas``, jnp twin otherwise)."""
-        from ..ops.pallas.gru import (
-            gru_sequence, gru_sequence_reference, gru_supported)
-        from .attention import _pallas_backend_ok
-
-        T, N = seq_x.shape[0], seq_x.shape[1]
-        keep = jnp.where(
-            seq_ends.reshape(T, N), jnp.zeros((), self.dtype),
-            jnp.ones((), self.dtype))
-        fused_ok = (self.use_pallas and _pallas_backend_ok()
-                    and gru_supported(self.num_hidden_channels, self.dtype))
-
+        any step whose ``seq_ends`` [T, N, 1] flag is set (episode
+        boundary). Layer-by-layer: each layer's input projection runs as
+        ONE whole-sequence matmul before its time scan."""
         outs = []
         layer_in = seq_x
         for layer, cell in enumerate(self.cells):
-            x_proj_seq = cell.project_input(layer_in)
-            wh = cell.recurrent_kernel.astype(self.dtype)
-            bh = cell.bias_h.astype(self.dtype)
-            h0 = start_hiddens[:, layer]
-            if fused_ok:
-                # The fused kernel has no unroll knob (the whole time loop
-                # already lives in one pallas_call).
-                ys = gru_sequence(x_proj_seq, keep, wh, bh, h0)
-            else:
-                ys = gru_sequence_reference(x_proj_seq, keep, wh, bh, h0,
-                                            unroll=self.seq_unroll)
+            ys = gru_sequence(
+                cell.input_proj(layer_in), seq_ends, *cell.weights(),
+                start_hiddens[:, layer], unroll=self.seq_unroll)
             layer_in = ys
             outs.append(ys)
 

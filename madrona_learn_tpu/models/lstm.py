@@ -5,28 +5,62 @@ stacked LSTM layers whose per-layer outputs concatenate into the feature
 vector, zero-init state, done-masked clearing, and a time-axis scan for the
 BPTT update pass.
 
-TPU-first state layout: the (c, h) state is a pair of ``[N, num_layers, H]``
-arrays — the agent batch leads, so the sim<->policy reorder gathers and the
-``data``-axis mesh sharding act on axis 0 of exactly two contiguous buffers.
+State layout: the (c, h) state is a pair of ``[N, num_layers, H]`` arrays
+— the agent batch leads, so the sim<->policy reorder gathers and the
+``data``-axis mesh sharding act on axis 0 of exactly two contiguous
+buffers.
 
-TPU-first sequence pass (the PPO update's dominant cost): layers scan one
-after another, and each layer's *input* projection for the whole sequence is
+Sequence pass (the PPO update's dominant cost): layers scan one after
+another, and each layer's *input* projection for the whole sequence is
 hoisted out of the scan into a single ``[T*N, F] x [F, 4H]`` matmul — the
 classic fused-RNN restructure. The scan body keeps only the recurrent
-``[N, H] x [H, 4H]`` matmul + gate math, halving in-scan FLOPs and letting
-the hoisted matmul saturate the MXU. The single-step path (rollouts) uses
-the identical packed-kernel math, so rollout and update forwards agree
-bit-for-bit. Done-masking is applied *after* each step, matching the
-rollout engine's step-then-reset ordering.
+``[N, H] x [H, 4H]`` matmul and the gate math.
+
+Both the single-step path (rollouts) and the sequence pass run the same
+``lstm_step``: gates in float32 from storage-dtype operands, state rounded
+back to the storage dtype at the step boundary, so rollout and update
+forwards agree bit for bit and PPO ratios start at exactly 1.
+Done-masking is applied *after* each step, matching the rollout engine's
+step-then-reset ordering.
 """
 
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
+from jax import lax
 
-__all__ = ["LSTM"]
+from .. import nn
+
+__all__ = ["LSTM", "lstm_step", "lstm_sequence"]
+
+
+def lstm_step(x_proj, c, h, wr, bias):
+    """One LSTM step from the projected input ``x_proj`` [N, 4H] (gate
+    order i, f, g, o). Returns (c, h) in the storage dtype of ``x_proj``."""
+    f32 = jnp.float32
+    dt = x_proj.dtype
+    gates = (x_proj.astype(f32)
+             + jnp.dot(h.astype(wr.dtype), wr, preferred_element_type=f32)
+             + bias.astype(f32))
+    i, f, g, o = jnp.split(gates, 4, axis=-1)
+    new_c = jax.nn.sigmoid(f) * c.astype(f32) + jax.nn.sigmoid(i) * jnp.tanh(g)
+    new_h = jax.nn.sigmoid(o) * jnp.tanh(new_c)
+    return new_c.astype(dt), new_h.astype(dt)
+
+
+def lstm_sequence(x_proj, ends, wr, bias, c0, h0, unroll=1):
+    """[T, N, 4H] projected inputs -> [T, N, H] outputs, clearing the
+    state after every step whose ``ends`` [T, N, 1] flag is set."""
+
+    def step(carry, inputs):
+        xp, end = inputs
+        c, h = lstm_step(xp, *carry, wr, bias)
+        zero = jnp.zeros((), c.dtype)
+        return (jnp.where(end, zero, c), jnp.where(end, zero, h)), h
+
+    _, ys = lax.scan(step, (c0, h0), (x_proj, ends), unroll=unroll)
+    return ys
 
 
 class _PackedLSTMLayer(nn.Module):
@@ -35,20 +69,14 @@ class _PackedLSTMLayer(nn.Module):
     Gate order along the packed axis: (i, f, g, o). Input and recurrent
     projections are separate params so the sequence pass can hoist the
     input half out of the scan.
-
-    ``precise_gates`` computes the gate math in fp32 from the storage-dtype
-    operands (rounding the carry back at the step boundary) — the exact
-    rounding points of the fused Pallas sequence kernel, so the rollout
-    single-step forward and the kernel's update-pass forward agree.
     """
 
     hidden: int
     dtype: jnp.dtype
-    precise_gates: bool = False
 
     def _orthogonal_4h(self, key, shape, param_dtype=jnp.float32):
         # Per-gate orthogonal blocks (matching the per-gate init of the
-        # standard flax cells) packed along the last axis.
+        # standard cells) packed along the last axis.
         fan_in = shape[0]
         keys = jax.random.split(key, 4)
         blocks = [
@@ -70,75 +98,28 @@ class _PackedLSTMLayer(nn.Module):
         self.bias = self.param(
             "bias", jax.nn.initializers.constant(0), (4 * H,))
 
-    def __call__(self, carry, x, x_proj=None):
+    def weights(self):
+        """(recurrent kernel, bias) in the compute dtype."""
+        return (self.recurrent_kernel.astype(self.dtype),
+                self.bias.astype(self.dtype))
+
+    def __call__(self, carry, x):
         c, h = carry  # [N, H] each
-
-        if x_proj is None:
-            x_proj = self.project_input(x)
-
-        if self.precise_gates:
-            f32 = jnp.float32
-            gates = (
-                x_proj.astype(f32)
-                + jnp.dot(h.astype(self.dtype),
-                          self.recurrent_kernel.astype(self.dtype),
-                          preferred_element_type=f32)
-                + self.bias.astype(self.dtype).astype(f32)
-            )
-            i, f, g, o = jnp.split(gates, 4, axis=-1)
-            new_c = (jax.nn.sigmoid(f) * c.astype(f32)
-                     + jax.nn.sigmoid(i) * jnp.tanh(g))
-            new_h = jax.nn.sigmoid(o) * jnp.tanh(new_c)
-            new_h = new_h.astype(self.dtype)
-            return (new_c.astype(c.dtype), new_h.astype(h.dtype)), new_h
-
-        gates = (
-            x_proj
-            + h.astype(self.dtype) @ self.recurrent_kernel.astype(self.dtype)
-            + self.bias.astype(self.dtype)
-        )
-        i, f, g, o = jnp.split(gates, 4, axis=-1)
-        new_c = (jax.nn.sigmoid(f) * c.astype(self.dtype)
-                 + jax.nn.sigmoid(i) * jnp.tanh(g))
-        new_h = jax.nn.sigmoid(o) * jnp.tanh(new_c)
-        return (new_c.astype(c.dtype), new_h.astype(h.dtype)), new_h
-
-    def project_input(self, x):
-        """[..., F] -> [..., 4H]; hoistable over any leading axes."""
-        return self.input_proj(x)
+        c, h = lstm_step(self.input_proj(x), c, h, *self.weights())
+        return (c, h), h
 
 
 class LSTM(nn.Module):
     num_hidden_channels: int
     num_layers: int
     dtype: jnp.dtype
-    # Unroll factor for the BPTT sequence scan (sweep with
-    # benchmarks/profile_update.py --lstm-unroll; measured neutral-to-worse
-    # on v5e at the bench shape, kept for other shapes). 1 = plain scan.
+    # Unroll factor for the BPTT sequence scan. 1 = plain scan.
     seq_unroll: int = 1
-    # Route the BPTT sequence pass through the fused Pallas kernel
-    # (ops/pallas/lstm.py) on TPU, and switch the single-step path to the
-    # kernel's fp32 gate math so both forwards stay consistent. Off-TPU the
-    # sequence pass uses the kernel's jnp twin (same math).
-    use_pallas: bool = False
-    # Also fuse the input projection into the sequence kernel
-    # (ops/pallas/lstm.py:lstm_sequence_proj; bit-identical math). OFF by
-    # default: the kernel wins standalone (1.074x the hoisted-proj kernel
-    # at the headline shape) but is an end-to-end REGRESSION in the full
-    # update step (14.27M -> 13.25M env-steps/s, same-process A/B) — the
-    # hoisted whole-sequence [T*N, F] @ [F, 4H] projection is a fusion
-    # root XLA merges with the preceding trunk layers, which the opaque
-    # in-kernel projection forecloses, same pathology as the fused policy
-    # step (docs/kernels.md). Opt in for opaque inputs or very wide F
-    # where the [T, N, 4H] x_proj HBM round-trip dominates.
-    fuse_input_proj: bool = False
 
-    @nn.nowrap
     def init_recurrent_state(self, N):
         shape = (N, self.num_layers, self.num_hidden_channels)
         return (jnp.zeros(shape, self.dtype), jnp.zeros(shape, self.dtype))
 
-    @nn.nowrap
     def clear_recurrent_state(self, rnn_states, should_clear):
         # should_clear: [N, 1]; broadcasts over (layer, hidden).
         mask = should_clear[..., None]
@@ -148,127 +129,39 @@ class LSTM(nn.Module):
     def setup(self):
         self.cells = [
             _PackedLSTMLayer(hidden=self.num_hidden_channels,
-                             dtype=self.dtype,
-                             precise_gates=self.use_pallas,
-                             name=f"layer_{layer}")
+                             dtype=self.dtype, name=f"layer_{layer}")
             for layer in range(self.num_layers)
         ]
 
     def __call__(self, cur_hiddens, in_features, train):
         c_in, h_in = cur_hiddens
 
-        cs, hs, outs = [], [], []
+        cs, hs = [], []
         layer_in = in_features
         for layer, cell in enumerate(self.cells):
-            (c, h), out = cell((c_in[:, layer], h_in[:, layer]), layer_in)
+            (c, h), _ = cell((c_in[:, layer], h_in[:, layer]), layer_in)
             layer_in = h
             cs.append(c)
             hs.append(h)
-            outs.append(out)
 
         carry = (jnp.stack(cs, axis=1), jnp.stack(hs, axis=1))
-        return jnp.concatenate(outs, axis=-1), carry
+        return jnp.concatenate(hs, axis=-1), carry
 
     def sequence(self, start_hiddens, seq_ends, seq_x, train):
         """[T, N, F] features -> [T, N, L*H] outputs, clearing state after
-        any step whose ``seq_ends`` flag is set (episode boundary).
+        any step whose ``seq_ends`` [T, N, 1] flag is set (episode
+        boundary).
 
         Layer-by-layer scans: layer l consumes layer l-1's full output
         sequence, so each layer's input projection runs as ONE whole-
         sequence matmul before its scan."""
-        if self.use_pallas:
-            return self._sequence_fused(start_hiddens, seq_ends, seq_x)
-
         c0, h0 = start_hiddens
-
-        def clear_pair(carry, end):
-            # end: [N, 1] broadcasts against per-layer [N, H] state.
-            return tuple(
-                jnp.where(end, jnp.zeros((), s.dtype), s) for s in carry)
-
-        def layer_scan(cell, carry0, x_proj_seq, ends):
-            def step(cell, carry, x_proj, end):
-                carry, y = cell(carry, None, x_proj=x_proj)
-                return clear_pair(carry, end), y
-
-            scanned = nn.scan(
-                step,
-                in_axes=0,
-                out_axes=0,
-                variable_broadcast="params",
-                variable_carry=False,
-                split_rngs={"params": False},
-                unroll=self.seq_unroll,
-            )
-            _, ys = scanned(cell, carry0, x_proj_seq, ends)
-            return ys
-
         outs = []
         layer_in = seq_x
         for layer, cell in enumerate(self.cells):
-            # Hoisted whole-sequence input projection: [T, N, F] @ [F, 4H].
-            x_proj_seq = cell.project_input(layer_in)
-            ys = layer_scan(
-                cell, (c0[:, layer], h0[:, layer]), x_proj_seq, seq_ends)
+            ys = lstm_sequence(
+                cell.input_proj(layer_in), seq_ends, *cell.weights(),
+                c0[:, layer], h0[:, layer], unroll=self.seq_unroll)
             layer_in = ys
             outs.append(ys)
-
-        return jnp.concatenate(outs, axis=-1)
-
-    def _sequence_fused(self, start_hiddens, seq_ends, seq_x):
-        """Fused-kernel sequence pass (Pallas on TPU, jnp twin elsewhere).
-
-        With ``fuse_input_proj=True``, layers whose input width divides
-        the tiling additionally fuse the INPUT PROJECTION into the kernel
-        (lstm_sequence_proj): the [T, N, 4H] x_proj tensor and its dxp
-        cotangent never materialize in HBM — the kernel streams the
-        4x-smaller x blocks, computes xp = round(x @ Wi) in-kernel at the
-        identical rounding point, emits dx directly, and accumulates dWi
-        in the fused fp32 epilogue next to dWr/db. Off by default: e2e
-        slower at the headline shape (see the field comment).
-        """
-        from ..ops.pallas.lstm import (
-            lstm_proj_supported, lstm_sequence, lstm_sequence_proj,
-            lstm_sequence_reference, lstm_supported)
-        from .attention import _pallas_backend_ok
-
-        c0, h0 = start_hiddens
-        T, N = seq_x.shape[0], seq_x.shape[1]
-        keep = jnp.where(
-            seq_ends.reshape(T, N), jnp.zeros((), self.dtype),
-            jnp.ones((), self.dtype))
-        fused_ok = (_pallas_backend_ok()
-                    and lstm_supported(self.num_hidden_channels, self.dtype))
-
-        outs = []
-        layer_in = seq_x
-        for layer, cell in enumerate(self.cells):
-            wr = cell.recurrent_kernel.astype(self.dtype)
-            b = cell.bias.astype(self.dtype)
-            fuse_proj = (
-                fused_ok
-                and self.fuse_input_proj
-                and not self.is_initializing()
-                and lstm_proj_supported(
-                    layer_in.shape[-1], self.num_hidden_channels,
-                    self.dtype))
-            if fuse_proj:
-                wi = self.variables["params"][f"layer_{layer}"][
-                    "input_proj"]["kernel"].astype(self.dtype)
-                ys = lstm_sequence_proj(
-                    layer_in, keep, wi, wr, b, c0[:, layer], h0[:, layer])
-            elif fused_ok:
-                # The fused kernel has no unroll knob (the whole time loop
-                # already lives in one pallas_call).
-                x_proj_seq = cell.project_input(layer_in)
-                ys = lstm_sequence(
-                    x_proj_seq, keep, wr, b, c0[:, layer], h0[:, layer])
-            else:
-                x_proj_seq = cell.project_input(layer_in)
-                ys = lstm_sequence_reference(
-                    x_proj_seq, keep, wr, b, c0[:, layer], h0[:, layer],
-                    unroll=self.seq_unroll)
-            layer_in = ys
-            outs.append(ys)
-
         return jnp.concatenate(outs, axis=-1)

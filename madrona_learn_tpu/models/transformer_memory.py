@@ -3,8 +3,8 @@
 An extension beyond the reference's model zoo (its only temporal memory is
 the LSTM; reference: rnn.py): recurrent state is a K/V ring buffer over the
 last ``window`` steps, and each step attends its query over that window.
-This trades the LSTM's sequential gate math for attention contractions that
-map directly onto the MXU, and gives the policy an explicit (inspectable)
+This trades the LSTM's sequential gate math for attention contractions
+(batched matrix products), and gives the policy an explicit (inspectable)
 memory horizon.
 
 Implements the same recurrent-module protocol the backbone towers consume
@@ -23,7 +23,9 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
+from jax import lax
+
+from .. import nn
 
 __all__ = ["WindowAttentionMemory"]
 
@@ -79,7 +81,8 @@ class _AttentionStep(nn.Module):
 
         out = dense("out")(attended)
         with jax.numpy_dtype_promotion("standard"):
-            out = nn.LayerNorm(dtype=self.dtype, name="norm")(out + x)
+            residual = out + x
+        out = nn.LayerNorm(dtype=self.dtype, name="norm")(residual)
 
         carry = (k_cache, v_cache, age, pos + 1)
         return carry, out
@@ -93,7 +96,6 @@ class WindowAttentionMemory(nn.Module):
     num_heads: int = 4
     dtype: jnp.dtype = jnp.float32
 
-    @nn.nowrap
     def init_recurrent_state(self, N):
         H, W = self.num_hidden_channels, self.window
         return (
@@ -103,7 +105,6 @@ class WindowAttentionMemory(nn.Module):
             jnp.zeros((N, 1), jnp.int32),
         )
 
-    @nn.nowrap
     def clear_recurrent_state(self, rnn_states, should_clear):
         k_cache, v_cache, age, pos = rnn_states
         clear = should_clear[:, 0].astype(jnp.bool_)
@@ -126,17 +127,15 @@ class WindowAttentionMemory(nn.Module):
         return out, new_state
 
     def sequence(self, start_states, seq_ends, seq_x, train):
-        def body(step, carry, x, end):
-            carry, y = step(carry, x)
+        if self.is_initializing():
+            # Create the step's parameters outside the scan; inside it they
+            # are read as constants.
+            self.step(start_states, seq_x[0])
+
+        def body(carry, inputs):
+            x, end = inputs
+            carry, y = self.step(carry, x)
             return self.clear_recurrent_state(carry, end), y
 
-        scanned = nn.scan(
-            body,
-            in_axes=0,
-            out_axes=0,
-            variable_broadcast="params",
-            variable_carry=False,
-            split_rngs={"params": False},
-        )
-        _, outputs = scanned(self.step, start_states, seq_x, seq_ends)
+        _, outputs = lax.scan(body, start_states, (seq_x, seq_ends))
         return outputs

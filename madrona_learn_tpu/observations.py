@@ -28,9 +28,9 @@ from typing import Callable, Dict, Set
 
 import jax
 import jax.numpy as jnp
-from flax.core import FrozenDict
 
 from .ops.ema import EMANormalizer
+from .struct import FrozenDict
 
 # A handler op takes (state_or_none, *per_key_args) for one obs key.
 _NOOP = lambda *args: None

@@ -14,21 +14,20 @@ dists.py:12-284 and the HL-Gauss classes in models.py:177-250):
   regressing") return distributions with linear or float-spaced bins.
 
 All log-prob/entropy math runs in float32 regardless of the network compute
-dtype (bf16 logits are upcast on entry), which is required for PPO ratio
-stability on TPU.
+dtype (bf16 logits are upcast on entry), which PPO ratio stability
+requires.
 """
 
 from __future__ import annotations
 
 from typing import List
 
-import flax
 import jax
 import jax.numpy as jnp
-from flax.core import FrozenDict
 from jax import random
 
 from ..config import ContinuousActionsConfig
+from ..struct import FrozenDict, PyTreeNode, field
 from ..utils.math import symexp
 
 
@@ -40,21 +39,19 @@ def _log_softmax(logits):
 def _select_along_last(x, idx):
     """``take_along_axis(x, idx, -1)`` as a one-hot multiply-reduce.
 
-    Dynamic gathers lower to serialized per-element VPU loops on TPU — an
-    XProf capture of the full PPO update showed the two [N, num_buckets]
-    action-log-prob gathers alone costing ~15% of device time. With the
-    small bucket counts of discrete action heads, comparing an iota against
-    the index and reducing is a dense vectorized op instead. Differentiable
+    With the small bucket counts of discrete action heads, comparing an
+    iota against the index and reducing is one dense elementwise fusion
+    instead of a gather. Differentiable
     in ``x`` (gradient is the one-hot mask).
     """
     k = jax.lax.broadcasted_iota(jnp.int32, x.shape, x.ndim - 1)
     return jnp.sum(jnp.where(k == idx, x, 0.0), axis=-1, keepdims=True)
 
 
-class DiscreteActionDistributions(flax.struct.PyTreeNode):
+class DiscreteActionDistributions(PyTreeNode):
     """Multi-head categorical distribution over concatenated logits."""
 
-    actions_num_buckets: List[int] = flax.struct.field(pytree_node=False)
+    actions_num_buckets: List[int] = field(pytree_node=False)
     all_logits: jax.Array
 
     def _head_logits(self):
@@ -102,10 +99,10 @@ class DiscreteActionDistributions(flax.struct.PyTreeNode):
         return list(self._head_logits())
 
 
-class ContinuousActionDistributions(flax.struct.PyTreeNode):
+class ContinuousActionDistributions(PyTreeNode):
     """Independent normal heads with tanh-mean, sigmoid-ranged stddev."""
 
-    cfgs: List[ContinuousActionsConfig] = flax.struct.field(pytree_node=False)
+    cfgs: List[ContinuousActionsConfig] = field(pytree_node=False)
     means: jax.Array
     stds: jax.Array
 
@@ -144,7 +141,7 @@ class ContinuousActionDistributions(flax.struct.PyTreeNode):
                 jnp.concatenate(entropies, axis=-2))
 
 
-class DictActionDistributions(flax.struct.PyTreeNode):
+class DictActionDistributions(PyTreeNode):
     """Dict of named action distributions — the canonical actor output.
 
     The sim contract carries actions as ``{name: array}`` pytrees keyed like
@@ -195,7 +192,7 @@ def _symmetric_weighted_sum(probs, bins):
     )
 
 
-class SymExpTwoHotDistribution(flax.struct.PyTreeNode):
+class SymExpTwoHotDistribution(PyTreeNode):
     """DreamerV3 two-hot categorical over symexp-spaced bins.
 
     Bin layout matches the reference's reduced range (symexp of linspace(-14,
@@ -249,7 +246,7 @@ class SymExpTwoHotDistribution(flax.struct.PyTreeNode):
         return -(target_two_hot * log_probs).sum(-1, keepdims=True)
 
 
-class HLGaussDist(flax.struct.PyTreeNode):
+class HLGaussDist(PyTreeNode):
     """Histogram-Gaussian return distribution (M3 / "Stop Regressing").
 
     Soft labels come from integrating a Gaussian (sigma = smoothness * local
@@ -257,9 +254,9 @@ class HLGaussDist(flax.struct.PyTreeNode):
     """
 
     logits: jax.Array
-    smoothness: float = flax.struct.field(pytree_node=False)
-    centers: jax.Array = flax.struct.field(pytree_node=False)
-    bounds: jax.Array = flax.struct.field(pytree_node=False)
+    smoothness: float = field(pytree_node=False)
+    centers: jax.Array = field(pytree_node=False)
+    bounds: jax.Array = field(pytree_node=False)
 
     def mean(self):
         probs = jax.nn.softmax(self.logits)
@@ -284,7 +281,7 @@ class HLGaussDist(flax.struct.PyTreeNode):
         return -(soft_labels * log_probs).sum(-1, keepdims=True)
 
 
-class HLGaussTwoPartDist(flax.struct.PyTreeNode):
+class HLGaussTwoPartDist(PyTreeNode):
     """Sum of a fine-grained small-range and coarse large-range HL-Gauss dist.
 
     The target is split into a fractional part in (-2, 2) and the remainder,

@@ -23,7 +23,8 @@ from dataclasses import dataclass
 
 from jax import lax
 import jax.numpy as jnp
-from flax.core import FrozenDict
+
+from ..struct import FrozenDict
 
 
 def _as_float(x):

@@ -2,15 +2,13 @@
 
 Capability parity with the reference advantage math (reference:
 algo_common.py:45-131), re-expressed as a reverse ``lax.scan`` (the reference
-uses a ``fori_loop`` with scatter writes; a scan with stacked outputs lowers to
-a cleaner TPU loop and shards trivially over the batch axis, which is the only
-axis the recurrence does not touch).
+uses a ``fori_loop`` with scatter writes; a scan with stacked outputs is one
+XLA while loop with no scatters and shards trivially over the batch axis,
+which is the only axis the recurrence does not touch).
 
 Inputs arrive in the trajectory-store layout ``[C, T/C, P, B, 1]``
 (bptt-chunks x steps x policies x agents); the recurrence runs over the full
-``T = C * T/C`` time axis.  A fused Pallas-TPU kernel for the same scan lives
-in ``ops/pallas/gae.py``; this module is the reference implementation both for
-tests and for backends where the kernel is unavailable.
+``T = C * T/C`` time axis.
 """
 
 from __future__ import annotations

@@ -13,19 +13,19 @@ from __future__ import annotations
 from functools import partial
 from typing import Dict
 
-import flax
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax.core import FrozenDict
+
+from ..struct import FrozenDict, PyTreeNode, field
 
 
 _F32_MAX = float(np.finfo(np.float32).max)
 _F32_MIN = float(np.finfo(np.float32).min)
 
 
-class Metric(flax.struct.PyTreeNode):
-    per_policy: bool = flax.struct.field(pytree_node=False)
+class Metric(PyTreeNode):
+    per_policy: bool = field(pytree_node=False)
     mean: jax.Array
     m2: jax.Array
     min: jax.Array
@@ -137,12 +137,12 @@ class Metric(flax.struct.PyTreeNode):
         )
 
 
-class TrainingMetrics(flax.struct.PyTreeNode):
+class TrainingMetrics(PyTreeNode):
     metrics: FrozenDict
     update_idx: jax.Array
     cur_buffer_offset: jax.Array
     update_buffer_size: jax.Array
-    print_names: FrozenDict = flax.struct.field(pytree_node=False)
+    print_names: FrozenDict = field(pytree_node=False)
 
     @staticmethod
     def create(

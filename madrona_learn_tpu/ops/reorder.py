@@ -27,9 +27,10 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
-import flax
 import jax
 import jax.numpy as jnp
+
+from ..struct import PyTreeNode, field
 
 
 def compute_reorder_chunks(assignments: jax.Array, P: int, C: int, B: int):
@@ -54,9 +55,8 @@ def compute_reorder_chunks(assignments: jax.Array, P: int, C: int, B: int):
 
     if P <= 64:
         # Counting sort: a [N, P] one-hot cumsum gives each agent's rank
-        # within its policy directly — no argsort. ~3x faster than the
-        # sort-based construction on TPU at N=32k (the per-step reorder is
-        # on the rollout hot path); the O(N*P) cumsum wins up to moderate
+        # within its policy directly — no argsort (the per-step reorder is
+        # on the rollout hot path); the O(N*P) cumsum suits up to moderate
         # population sizes.
         one_hot = (
             assignments[:, None]
@@ -157,7 +157,7 @@ def compute_reorder_chunks_sharded(assignments, P, C, B_local, D):
             to_sim_local.astype(jnp.int32))
 
 
-class PolicyBatchReorderState(flax.struct.PyTreeNode):
+class PolicyBatchReorderState(PyTreeNode):
     """Bidirectional gather state between sim order and policy-chunk order.
 
     When matchmaking is trivial (pure self-play with a block-constant
@@ -167,13 +167,13 @@ class PolicyBatchReorderState(flax.struct.PyTreeNode):
 
     to_policy_idxs: Optional[jax.Array]
     to_sim_idxs: Optional[jax.Array]
-    policy_dims: Tuple[int, ...] = flax.struct.field(pytree_node=False)
-    sim_dims: Tuple[int, ...] = flax.struct.field(pytree_node=False)
+    policy_dims: Tuple[int, ...] = field(pytree_node=False)
+    sim_dims: Tuple[int, ...] = field(pytree_node=False)
     # >1: the index arrays are [D, ...] shard-local (see
     # compute_reorder_chunks_sharded) and transforms run as batched gathers
     # over the explicit shard axis — communication-free under a data-sharded
     # batch.
-    data_shards: int = flax.struct.field(pytree_node=False, default=1)
+    data_shards: int = field(pytree_node=False, default=1)
 
     def to_policy(self, data):
         D = self.data_shards

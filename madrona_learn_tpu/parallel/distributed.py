@@ -1,13 +1,12 @@
 """Multi-host initialization helpers.
 
-On a TPU pod slice each host runs the same program; ``init_multi_host``
-wires up ``jax.distributed`` so ``jax.devices()`` is the global device list,
-then the mesh/sharding layer (parallel/mesh.py) expresses everything in
-global terms — XLA routes collectives over ICI within a slice and DCN across
-slices. (The reference is single-device and has no equivalent; SURVEY.md
+On a multi-host cluster each host runs the same program;
+``init_multi_host`` wires up ``jax.distributed`` so ``jax.devices()`` is the
+global device list, then the mesh/sharding layer (parallel/mesh.py)
+expresses everything in global terms and XLA routes the collectives. (The reference is single-device and has no equivalent; SURVEY.md
 section 2c.)
 
-Typical pod-slice entry::
+Typical multi-host entry::
 
     from madrona_learn_tpu.parallel import distributed, make_mesh
     distributed.init_multi_host()               # no-op on single host
@@ -35,14 +34,11 @@ def init_multi_host(
     """Initialize jax.distributed when running under a multi-host launcher.
 
     Returns True if distributed mode was initialized. With no arguments and
-    no cluster environment (TPU metadata / JAX_COORDINATOR_ADDRESS), this is
-    a no-op so single-host runs work unchanged.
+    ``JAX_COORDINATOR_ADDRESS`` in the environment, this is a no-op so
+    single-host runs work unchanged.
     """
     env_coord = os.environ.get("JAX_COORDINATOR_ADDRESS")
-    in_tpu_pod = os.environ.get("TPU_WORKER_HOSTNAMES", "") not in (
-        "", "localhost")
-
-    if coordinator_address is None and not env_coord and not in_tpu_pod:
+    if coordinator_address is None and not env_coord:
         return False
 
     jax.distributed.initialize(

@@ -1,6 +1,6 @@
 """Device mesh + sharding rules for the resident train step.
 
-This is the TPU-native layer the single-device reference does not have
+This is the multi-device layer the single-device reference does not have
 (reference: train.py:144 pins one device; no pmap/pjit/psum exists anywhere
 in it — SURVEY.md section 2c). Design:
 
@@ -107,10 +107,9 @@ def replicate_for_inference(tree, mesh_cfg: Optional[MeshConfig]):
     The rollout loop's per-chunk weight gather (``x[state_idxs]`` over the
     policy-sharded population) otherwise lowers to an all-reduce of
     [num_chunks x full param struct] over the ``policy`` axis EVERY sim
-    step — measured at 44.85 GB per device per update at the weak-scaled
-    BASELINE config-#5 shape (scripts/comm_budget.py), 97% of all
-    communication in the step and the single biggest threat to the >=85%
-    2-host scaling target. Replicating the *inference copy* once per
+    step — 44.85 GB per device per update at the weak-scaled config-#5
+    shape, counted from the compiled program's collectives: 97% of all
+    communication in the step. Replicating the *inference copy* once per
     update turns that into one population all-gather ((P-1)/P x population
     params, ~2 orders of magnitude less traffic) and makes every
     subsequent per-step chunk gather shard-local. Optimizer state and the

@@ -12,10 +12,10 @@ Capability parity with the reference PBT layer (reference: pbt.py:21-722):
   perturb), cull (bottom-k overwritten by mutated top-k), and past-policy
   snapshots, all gated by an expected-winrate / Welch-t overwrite check.
 
-TPU notes: every evolution op is expressed as gathers/scatters over the
+Device notes: every evolution op is expressed as gathers/scatters over the
 leading policy axis of the stacked policy/train-state pytrees. Under a mesh
 with the population sharded on the ``policy`` axis, XLA lowers these to
-collective permutes/all-gathers over ICI — no host round trip, matching the
+collective permutes/all-gathers — no host round trip, matching the
 "exploit/explore exchanges via collective permutes" design goal.
 """
 
@@ -360,7 +360,7 @@ def pbt_update_elo(get_episode_scores_fn, assignments, dones, episode_results,
                    policy_elos, mm_cfg: PBTMatchmakeConfig):
     """Incremental Elo (K=1) from per-world episode results.
 
-    Two-team only (capability parity: reference pbt.py:273-343). TPU-native
+    Two-team only (capability parity: reference pbt.py:273-343). On-device
     formulation: each finished match's (score - expected_score) is computed
     once for both sides, then segment-reduced into per-policy deltas through
     a one-hot select-reduce over the [matches, policies] mask — a single
@@ -403,7 +403,7 @@ def pbt_update_fitness(assignments, policy_states, dones, episode_results,
     """EMA episode-score fitness for non-competitive populations.
 
     Single-team only (capability parity: reference pbt.py:382-471, the
-    decayed weighted Chan mean/var merge). TPU-native formulation: episode
+    decayed weighted Chan mean/var merge). On-device formulation: episode
     scores are computed once, per-policy count/mean/var come from masked
     one-hot reductions (two-pass variance), and the decay-weighted merge
     runs elementwise over the whole policy axis at once.

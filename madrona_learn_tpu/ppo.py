@@ -7,7 +7,7 @@ minibatch fori loops with shuffled whole-sequence minibatches, advantage
 filtering, trajectory importance sampling, fp16 dynamic loss scaling,
 post-step weight-norm projection and LayerNorm scale/bias renormalization.
 
-TPU-native deviations:
+Deviations from the reference:
 - The optimizer chain is learning-rate-free; the on-device per-policy
   ``hyper_params.lr`` scales the update (see train_state.py docstring), so
   PBT lr mutations actually take effect and per-policy lrs shard over the
@@ -27,7 +27,6 @@ from typing import Callable, Dict, Optional, Union
 import jax
 import jax.numpy as jnp
 import optax
-from flax.core import FrozenDict
 from jax import lax, random
 
 from .algo import AlgoBase, HyperParams
@@ -36,6 +35,7 @@ from .ops.gae import zscore_data
 from .ops.metrics import Metric, TrainingMetrics
 from .pbt import explore_param
 from .rollouts import RolloutData
+from .struct import FrozenDict
 from .train_state import PolicyState, PolicyTrainState
 from .utils.profile import profile
 
@@ -184,57 +184,6 @@ def resolve_stratify(cfg: TrainConfig, num_train_seqs_per_policy: int,
     return stratify
 
 
-def _scaler_value_and_grad_manual(scaler, loss_fn, params, data_axis):
-    """fp16 DynamicScale step inside the manual shard_map learn region.
-
-    ``loss_fn`` pmeans the loss value over ``data_axis``, so each shard's
-    AD yields the gradient of its local minibatch-slice mean and the
-    global mean's gradient is the *pmean* of the shard gradients (same
-    contract as the non-scaled branch in _ppo_update; this matches what
-    flax's ``value_and_grad(axis_name=...)`` does for pmap). This
-    reimplements the flax wrapper
-    (flax/training/dynamic_scale.py::DynamicScale.value_and_grad; scale
-    update rule reproduced exactly): differentiate the scaled loss, pmean
-    the unscaled fp32 shard gradients, then derive finiteness — and hence
-    the scale/fin_steps update — from the GLOBAL gradient. The collective
-    propagates non-finite entries to every shard, so ``is_finite`` and the
-    new scale are shard-invariant by construction, with no extra
-    collective: every shard steps its replicated DynamicScale identically.
-
-    Returns ``(new_scaler, is_finite, (loss, aux), grads)`` with the same
-    shapes/dtypes as the flax wrapper (fp32 unscaled grads).
-    """
-    scale = scaler.scale
-
-    def scaled_loss_fn(p):
-        loss, aux_inner = loss_fn(p)
-        return scale * loss, aux_inner
-
-    aux, grads = jax.value_and_grad(scaled_loss_fn, has_aux=True)(params)
-    aux = (aux[0] / scale, aux[1])
-    grads = jax.tree.map(
-        lambda g: lax.pmean(jnp.asarray(g, jnp.float32) / scale, data_axis),
-        grads)
-
-    is_finite = jnp.array(True)
-    for g in jax.tree.leaves(grads):
-        is_finite &= jnp.all(lax.is_finite(g))
-
-    grow = scaler.fin_steps == scaler.growth_interval
-    fin_scale = jnp.where(
-        grow & is_finite,
-        jnp.minimum(scale * scaler.growth_factor,
-                    jnp.finfo(jnp.float32).max),
-        scale)
-    inf_scale = scale * scaler.backoff_factor
-    if scaler.minimum_scale is not None:
-        inf_scale = jnp.maximum(inf_scale, scaler.minimum_scale)
-    new_scaler = scaler.replace(
-        scale=jnp.where(is_finite, fin_scale, inf_scale),
-        fin_steps=jnp.where(grow | (~is_finite), 0, scaler.fin_steps + 1))
-    return new_scaler, is_finite, aux, grads
-
-
 def _zero_sharded_opt_update(hp, grads, opt_state, params, data_axis,
                              zero_rows):
     """ZeRO-1 optimizer step: Adam moments sharded over the replica axes.
@@ -326,7 +275,7 @@ def _ppo_update(
     # shard's equal slice of the global minibatch; every reduction below
     # pmean/psums over ``data_axis`` so losses, gradients, normalizer
     # updates, and metrics equal the single-device computation exactly
-    # (fp16 DynamicScale included — see _scaler_value_and_grad_manual).
+    # (fp16 DynamicScale included).
     #
     # ``mb_mask`` ([mb, 1]; 1 = real row, 0 = padding) appears when the
     # global minibatch does not divide evenly over the mesh row shards, so
@@ -493,12 +442,14 @@ def _ppo_update(
         opt_state = train_state.opt_state
         zero_rows = cfg.mesh.zero_rows if cfg.mesh is not None else 1
 
-        if scaler is not None and data_axis is None:
-            grad_fn = scaler.value_and_grad(loss_fn, has_aux=True)
+        if scaler is not None:
+            # Inside the manual region loss_fn pmeans the loss value, so
+            # each shard's gradient is that of its local slice mean; the
+            # scaler pmeans the unscaled gradients before its finiteness
+            # test, so every shard steps its replicated scale identically.
+            grad_fn = scaler.value_and_grad(
+                loss_fn, has_aux=True, axis_name=data_axis)
             scaler, is_finite, aux, grads = grad_fn(params)
-        elif scaler is not None:
-            scaler, is_finite, aux, grads = _scaler_value_and_grad_manual(
-                scaler, loss_fn, params, data_axis)
         else:
             grad_fn = jax.value_and_grad(loss_fn, has_aux=True)
             aux, grads = grad_fn(params)

@@ -6,7 +6,7 @@ per-step matchmaking updates, BPTT-chunked trajectory collection with RNN
 start-state caching, bootstrap values, GAE/returns, and the reshape into
 per-policy training sequences.
 
-Architectural deviation (TPU-first): collection is a nested ``lax.scan``
+Architectural deviation: collection is a nested ``lax.scan``
 (outer over BPTT chunks, inner over steps) whose *stacked outputs* form the
 trajectory store directly in ``[C, T/C, P, B, ...]`` layout — the reference
 instead preallocates a store and scatter-writes into it per step
@@ -26,10 +26,8 @@ from dataclasses import dataclass
 from functools import partial
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
-import flax
 import jax
 import jax.numpy as jnp
-from flax.core import FrozenDict, frozen_dict
 from jax import lax, random
 
 from .config import (
@@ -51,6 +49,7 @@ from .pbt import (
     pbt_init_matchmaking,
     pbt_update_matchmaking,
 )
+from .struct import FrozenDict, PyTreeNode, field, freeze
 from .utils.profile import profile
 
 
@@ -68,16 +67,12 @@ def heuristic_policy_chunk_size(sim_batch_size: int,
     The chunk size trades reserved-partial-chunk PADDING ((P-1)*C rows of
     wasted inference) against per-chunk WEIGHT TRAFFIC (the per-step
     gather materializes one full per-policy parameter copy per chunk —
-    ~(N/C + P) * params bytes every rollout step). Round-5 e2e sweeps on
-    v5e (benchmarks/profile_pbt.py --chunk-sweep) found the optimum in
-    the 256-512 band across 4-32-policy shapes: config #4 (12 policies,
-    32k agents) 64: 3.90M / 256: 4.61M / 512: 4.59M / 1024: 4.29M
-    agent-steps/s; config #3 (4 policies, 16k) 64: 4.30M / 256: 5.26M /
-    512: 5.33M / 1024: 5.12M; the round-2 32-policy infer sweep peaked at
-    256. (Round 1-4 seeded min_chunk from gcd(batch, P), which dragged C
-    to the 64 floor — 523 chunks at config #4 — costing ~18-24% e2e.)
-    Shared with the benchmarks so they always measure the production
-    geometry."""
+    ~(N/C + P) * params bytes every rollout step). The band was chosen by
+    end-to-end sweeps on the earlier accelerator and is not yet
+    re-measured on the GPU (benchmarks/profile_pbt.py --chunk-sweep).
+    Seeding min_chunk from gcd(batch, P) instead drags C to the 64 floor
+    (523 chunks at config #4). Shared with the benchmarks so they always
+    measure the production geometry."""
     c = 1 << ((min_chunk - 1).bit_length())
     c = min(c, 512)
     c = max(c, min(64, sim_batch_size))
@@ -151,8 +146,7 @@ class RolloutConfig:
                 # Advisory only (not warnings.warn: the layout is an auto
                 # optimization the user never requested, and tiny test
                 # batches routinely fail the divisibility): the flat
-                # layout stays correct, just pays the replicated emission
-                # — scripts/comm_budget.py quantifies the cost.
+                # layout stays correct, just pays the replicated emission.
                 import logging
                 logging.getLogger(__name__).info(
                     "matchmaking layout cannot shard over data=%d (a "
@@ -204,14 +198,12 @@ class RolloutConfig:
                     pbt.static_play_batch_size // pbt.total_num_policies)
             assert min_chunk > 0
 
-            # Pow2 per-policy share, 64 floor (sublane-aligned, MXU-viable
-            # per-chunk matmuls), capped so reserved-partial-chunk padding
-            # stays <= half the batch — every policy owns one reserved
-            # partial chunk, so inference always processes (P-1)*C padding
-            # rows on top of the batch; measured on v5e at 32 policies x
-            # 16384 agents the throughput peak is exactly at this cap
-            # (C=256: 5.9M agent-steps/s vs 5.6M at C=512 and 3.0M at
-            # C=64; benchmarks/infer_bench.py --chunk sweep).
+            # Pow2 per-policy share, 64 floor (per-chunk matmuls big enough
+            # to keep the matrix units busy), capped so reserved-partial-
+            # chunk padding stays <= half the batch — every policy owns one
+            # reserved partial chunk, so inference always processes
+            # (P-1)*C padding rows on top of the batch
+            # (benchmarks/infer_bench.py --chunk sweeps it).
             policy_chunk_size = heuristic_policy_chunk_size(
                 sim_batch_size, pbt.total_num_policies, min_chunk)
         else:
@@ -337,11 +329,11 @@ def _compute_reorder_state(assignments, rollout_cfg: RolloutConfig):
 # Rollout state
 # ---------------------------------------------------------------------------
 
-class RolloutState(flax.struct.PyTreeNode):
-    cfg: RolloutConfig = flax.struct.field(pytree_node=False)
-    step_fn: Callable = flax.struct.field(pytree_node=False)
-    load_ckpts_fn: Optional[Callable] = flax.struct.field(pytree_node=False)
-    get_ckpts_fn: Optional[Callable] = flax.struct.field(pytree_node=False)
+class RolloutState(PyTreeNode):
+    cfg: RolloutConfig = field(pytree_node=False)
+    step_fn: Callable = field(pytree_node=False)
+    load_ckpts_fn: Optional[Callable] = field(pytree_node=False)
+    get_ckpts_fn: Optional[Callable] = field(pytree_node=False)
     sim_state: Any
     cur_obs: FrozenDict
     prng_key: jax.Array
@@ -355,7 +347,7 @@ class RolloutState(flax.struct.PyTreeNode):
     # to run on world-slices inside the manual collect region. Host-callback
     # / FFI sims must leave this False (callbacks inside shard_map are not
     # supported); they keep the GSPMD collect path.
-    data_parallel_sim: bool = flax.struct.field(
+    data_parallel_sim: bool = field(
         pytree_node=False, default=False)
 
     @staticmethod
@@ -379,7 +371,7 @@ class RolloutState(flax.struct.PyTreeNode):
 
         reorder_state = _compute_reorder_state(policy_assignments, rollout_cfg)
 
-        init_out = frozen_dict.freeze(sim_fns["init"]())
+        init_out = freeze(sim_fns["init"]())
 
         return RolloutState(
             cfg=rollout_cfg,
@@ -469,21 +461,21 @@ class RolloutState(flax.struct.PyTreeNode):
         if isinstance(out, dict) and "state" in out:
             return self.update(
                 sim_state=out["state"],
-                cur_obs=frozen_dict.freeze(out["obs"]))
-        return self.update(cur_obs=frozen_dict.freeze(out))
+                cur_obs=freeze(out["obs"]))
+        return self.update(cur_obs=freeze(out))
 
 
 # ---------------------------------------------------------------------------
 # Training data container
 # ---------------------------------------------------------------------------
 
-class RolloutData(flax.struct.PyTreeNode):
+class RolloutData(PyTreeNode):
     """Per-policy training sequences: leaves are [num_seqs, T/C, ...]
     (after the per-policy vmap strips the leading policy axis)."""
 
     data: FrozenDict
-    num_train_seqs_per_policy: int = flax.struct.field(pytree_node=False)
-    num_train_policies: int = flax.struct.field(pytree_node=False)
+    num_train_seqs_per_policy: int = field(pytree_node=False)
+    num_train_policies: int = field(pytree_node=False)
 
     def all(self):
         return self.data
@@ -507,10 +499,8 @@ class RolloutData(flax.struct.PyTreeNode):
 
 # Unroll factor for the per-step sim/inference scan. The step body is many
 # small launch-bound ops at rollout batch sizes; unrolling lets XLA fuse
-# across step boundaries. A/B'd end-to-end on v5e at the headline bench
-# shape (3 trials each, same process): unroll=1 11.7-12.0M env-steps/s,
-# unroll=2 12.74-12.76M (+8%), unroll=4 12.5-12.8M (no further gain,
-# bigger program). lax.scan handles non-dividing step counts.
+# across step boundaries. Chosen on the earlier accelerator; not yet
+# re-measured on the GPU. lax.scan handles non-dividing step counts.
 _ROLLOUT_SCAN_UNROLL = 2
 
 
@@ -567,8 +557,8 @@ def rollout_loop(
         # Multi-device mesh: the per-step per-chunk weight gather must read
         # a REPLICATED population — from a policy-sharded one it lowers to a
         # [num_chunks x params] all-reduce over the policy axis every step
-        # (measured 44.85 GB/device/update at BASELINE config-#5 scale,
-        # scripts/comm_budget.py). One all-gather per loop instead. (Inside
+        # (44.85 GB/device/update at config-#5 scale, counted from the
+        # compiled collectives). One all-gather per loop instead. (Inside
         # the manual region the caller already passes a replicated copy.)
         from .parallel.mesh import replicate_for_inference
         policy_states = replicate_for_inference(policy_states, cfg.mesh)
@@ -696,7 +686,7 @@ def rollout_loop(
                     rnn_states = reorder_state.to_sim(chunk_rnn_states)
 
         with profile("Rollout Step"):
-            step_input = frozen_dict.freeze({
+            step_input = freeze({
                 "state": sim_state,
                 "actions": reorder_state.to_sim(policy_out["actions"]),
                 "resets": jnp.zeros((cfg.num_worlds, 1), jnp.int32),
@@ -710,7 +700,7 @@ def rollout_loop(
             step_input = step_input.copy({"pbt": FrozenDict(pbt_inputs)})
 
             with profile("Sim Step"):
-                step_output = frozen_dict.freeze(
+                step_output = freeze(
                     rollout_state.step_fn(step_input))
 
             sim_state = step_output["state"]
@@ -816,7 +806,7 @@ def rollouts_reset(rollout_state: RolloutState, policy_states):
                 (cfg.sim_batch_size, 1, action_cfg.num_dims), jnp.float32)
         raise AssertionError("unknown action config")
 
-    step_input = frozen_dict.freeze({
+    step_input = freeze({
         "state": rollout_state.sim_state,
         "actions": {
             k: zero_action(v) for k, v in cfg.actions_cfg.items()},
@@ -830,7 +820,7 @@ def rollouts_reset(rollout_state: RolloutState, policy_states):
         pbt_inputs["reward_hyper_params"] = policy_states.reward_hyper_params
     step_input = step_input.copy({"pbt": FrozenDict(pbt_inputs)})
 
-    step_output = frozen_dict.freeze(rollout_state.step_fn(step_input))
+    step_output = freeze(rollout_state.step_fn(step_input))
 
     dones = step_output["dones"].astype(jnp.bool_)
     rnn_states = policy_states.rnn_reset_fn(
@@ -881,7 +871,6 @@ class RolloutManager:
         self._use_advantages = train_cfg.compute_advantages
         self._gamma = train_cfg.gamma
         self._gae_lambda = train_cfg.gae_lambda
-        self._use_pallas_gae = train_cfg.use_pallas_gae
         self._mesh_cfg = train_cfg.mesh
 
         # Approximate train-store footprint (obs-dominated; actions/values/
@@ -895,42 +884,6 @@ class RolloutManager:
         self.approx_train_store_bytes = (
             self._num_train_policies * self._num_train_agents_per_policy
             * train_cfg.steps_per_update * obs_bytes_per_agent)
-
-    def _gae_shardable(self, store_shape):
-        """Whether the [C, T/C, P, B, 1] advantage inputs divide the mesh
-        (policy axis over P, data axis over B) for the manual GAE region."""
-        mesh_cfg = self._mesh_cfg
-        if mesh_cfg is None or mesh_cfg.num_devices <= 1:
-            return False
-        _, _, num_policies, batch = store_shape[:4]
-        return (num_policies % mesh_cfg.policy == 0
-                and batch % mesh_cfg.data == 0)
-
-    def _compute_advantages_sharded(self, rewards, values, dones, bootstrap):
-        from .parallel.mesh import DATA_AXIS, POLICY_AXIS, make_mesh
-
-        mesh = make_mesh(self._mesh_cfg)
-        P = jax.sharding.PartitionSpec
-        store_spec = P(None, None, POLICY_AXIS, DATA_AXIS, None)
-        boot_spec = P(POLICY_AXIS, DATA_AXIS, None)
-
-        def body(r, v, d, b):
-            from .models.attention import _pallas_backend_ok
-            if _pallas_backend_ok():
-                from .ops.pallas.gae import compute_advantages_pallas as fn
-            else:
-                fn = compute_advantages
-            return fn(self._gamma, self._gae_lambda, r, v, d, b)
-
-        return jax.shard_map(
-            body, mesh=mesh,
-            in_specs=(store_spec, store_spec, store_spec, boot_spec),
-            out_specs=store_spec,
-            # pallas_call carries no vma metadata; the region is
-            # embarrassingly parallel (outputs sharded exactly like
-            # inputs), so the check adds nothing here.
-            check_vma=False,
-        )(rewards, values, dones, bootstrap)
 
     def add_metrics(self, train_cfg: TrainConfig, metrics: FrozenDict):
         new_metrics = {
@@ -946,7 +899,7 @@ class RolloutManager:
 
     # -- layout helpers ------------------------------------------------------
     #
-    # Multi-chip note (measured, scripts/comm_budget.py): with the flat
+    # Multi-chip note: with the flat
     # matchmaking layout (pbt.num_data_shards == 1) the sim->train gathers
     # below use STATIC indices that cross data shards, so GSPMD lowers them
     # as mask+psum and the train store is born REPLICATED over ``data``
@@ -1060,11 +1013,9 @@ class RolloutManager:
     def _manual_collect_enabled(self, rollout_state: RolloutState) -> bool:
         """Whether collect runs as a manual shard_map region over ``data``.
 
-        Inside the region the trace is manual over every mesh axis, so the
-        Mosaic kernels (single-step LSTM/GRU, entity attention, GAE) stay
-        routed at pod scale instead of falling back to jnp twins under
-        GSPMD (the learn phase got this in round 3; collect was the last
-        GSPMD phase). Requirements:
+        Inside the region each data shard collects its own slice and the
+        only collect-phase communication is the explicit reductions
+        (obs-stat moments, metric merges). Requirements:
 
         - a multi-device mesh with ``manual_collect`` (the default);
         - ``model == 1``: a data-only region replicates params over the
@@ -1091,7 +1042,7 @@ class RolloutManager:
         cfg = self._cfg
         D = m.data
         if D == 1:
-            return True  # replicated region: kernels routed, nothing sliced
+            return True  # replicated region: nothing sliced
         if cfg.sim_batch_size % D or cfg.num_worlds % D:
             return False
         return (cfg.pbt.complex_matchmaking
@@ -1341,14 +1292,12 @@ class RolloutManager:
                 cb_state,
                 start_step_idx=bptt_chunk * self._num_bptt_steps,
                 shard_info=shard_info,
-                # Chunk-order-resident RNN carry: bit-identical, but
-                # measured 3.6% SLOWER e2e at config #4 on v5e (5.02 vs
-                # 5.20M agent-steps/s — the composed remap gather on the
-                # padded [num_chunks*C] layout costs more than the
-                # to_sim/to_policy pair XLA fuses into the policy chain;
-                # same pathology as the fused policy step). Default off;
-                # opt in with MADRONA_LEARN_TPU_CHUNKWISE_RNN=1 for
-                # shapes where padding is slim. See docs/kernels.md.
+                # Chunk-order-resident RNN carry: bit-identical to the
+                # default sim-order carry; it trades the per-step
+                # to_sim/to_policy gathers for one composed remap gather
+                # on the padded [num_chunks*C] layout. Opt in with
+                # MADRONA_LEARN_TPU_CHUNKWISE_RNN=1; not measured on the
+                # GPU.
                 chunkwise_rnn=(os.environ.get(
                     "MADRONA_LEARN_TPU_CHUNKWISE_RNN") == "1"),
                 sample_actions=True,
@@ -1437,31 +1386,10 @@ class RolloutManager:
             unnormalized_bootstrap, user_state)
 
         if self._use_advantages:
-            from .models.attention import _pallas_backend_ok
-            if self._use_pallas_gae and _pallas_backend_ok():
-                from .ops.pallas.gae import compute_advantages_pallas
-
-                advantages = compute_advantages_pallas(
-                    self._gamma, self._gae_lambda,
-                    rollouts["rewards"], unnormalized_values,
-                    rollouts["dones"], unnormalized_bootstrap)
-            elif self._use_pallas_gae and self._gae_shardable(
-                    rollouts["dones"].shape):
-                # Multi-device GSPMD trace: GSPMD can't partition a Mosaic
-                # custom call, but the GAE recurrence touches only the time
-                # axis, so run it manual over the mesh — each shard scans
-                # its [policy-slice, agent-slice] block and the kernel
-                # stays routed (on non-TPU backends the body falls back to
-                # the scan twin per shard; results are identical either
-                # way).
-                advantages = self._compute_advantages_sharded(
-                    rollouts["rewards"], unnormalized_values,
-                    rollouts["dones"], unnormalized_bootstrap)
-            else:
-                advantages = compute_advantages(
-                    self._gamma, self._gae_lambda,
-                    rollouts["rewards"], unnormalized_values,
-                    rollouts["dones"], unnormalized_bootstrap)
+            advantages = compute_advantages(
+                self._gamma, self._gae_lambda,
+                rollouts["rewards"], unnormalized_values,
+                rollouts["dones"], unnormalized_bootstrap)
             returns = advantages + unnormalized_values
             rollouts = rollouts.copy({
                 "advantages": advantages.astype(self._cfg.prob_dtype),

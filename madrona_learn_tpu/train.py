@@ -9,7 +9,7 @@ PPO -> write back train slice — is one jit-compiled, buffer-donated program.
 matchmaking to static assignments; ``update_population`` applies cull/past
 evolution.
 
-TPU-native: ``init_training`` takes a ``MeshConfig`` (via ``cfg.mesh``) and
+Multi-device: ``init_training`` takes a ``MeshConfig`` (via ``cfg.mesh``) and
 builds a ``jax.sharding.Mesh``; the update step's arguments carry
 NamedShardings that shard the sim batch over the ``data`` axis and the
 population over the ``policy`` axis (see ``parallel/``). On one chip the
@@ -25,11 +25,9 @@ from dataclasses import dataclass
 from functools import partial
 from typing import Any, Callable, Dict, Optional, Union
 
-import flax
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax.core import FrozenDict
 from jax import random
 
 from .algo import AlgoBase
@@ -51,17 +49,18 @@ from .rollouts import (
 )
 from .parallel.mesh import DATA_AXIS, MODEL_AXIS, POLICY_AXIS, make_mesh
 from .train_state import TrainStateManager, map_adam_moments
+from .struct import FrozenDict, PyTreeNode, field
 from .utils.profile import profile
 
 
-class TrainingManager(flax.struct.PyTreeNode):
+class TrainingManager(PyTreeNode):
     state: TrainStateManager
     rollout: RolloutState
     metrics: TrainingMetrics
     update_idx: jax.Array
-    cfg: TrainConfig = flax.struct.field(pytree_node=False)
-    update_fn: Callable = flax.struct.field(pytree_node=False)
-    profile_port: Optional[int] = flax.struct.field(pytree_node=False)
+    cfg: TrainConfig = field(pytree_node=False)
+    update_fn: Callable = field(pytree_node=False)
+    profile_port: Optional[int] = field(pytree_node=False)
 
     def save_ckpt(self, path, block=True):
         """Write ``path/<update_idx>``. ``block=False`` overlaps
@@ -139,10 +138,9 @@ def init_training(
 
     ``init_on_cpu=True`` runs every one-time initialization program (sim
     init, population init, metric buffers) on the host CPU backend and
-    transfers the resulting state pytree to ``dev`` afterwards. On TPU
-    deployments where device compilation is expensive this cuts startup to a
-    single compile (the update step itself); results are identical since init
-    is pure array construction.
+    transfers the resulting state pytree to ``dev`` afterwards, so only the
+    update step itself compiles for the device; results are identical since
+    init is pure array construction.
     """
     print(cfg)
     print()
@@ -214,8 +212,8 @@ def _learn_row_axes(cfg: TrainConfig):
 
     ``model > 1`` folds the model axis into the row split: the learn
     phase treats it as extra batch parallelism (recurrent-sequence TP
-    would place a collective inside every time step, which is
-    latency-poison on TPU; see MeshConfig's docstring and
+    would place a collective inside every time step, a latency cost paid
+    T times per sequence; see MeshConfig's docstring and
     docs/scaling.md "The TP fold"). Returns a plain axis name on
     model==1 meshes so single-axis traces stay identical."""
     if cfg.mesh is not None and cfg.mesh.model > 1:
@@ -226,10 +224,9 @@ def _learn_row_axes(cfg: TrainConfig):
 def _manual_learn_enabled(cfg: TrainConfig) -> bool:
     """Whether the learn phase runs as a manual shard_map region.
 
-    The manual region keeps the Mosaic kernels routed on multi-chip meshes
-    (GSPMD cannot partition a Mosaic custom call — ops/pallas/runtime.py);
-    it reproduces global minibatch semantics with pmeans/psums over
-    ``data``. Every configuration is served (model-axis TP folds into the
+    The manual region reproduces global minibatch semantics with
+    pmeans/psums over ``data`` while each shard selects its minibatch rows
+    locally, so the rollout store is never replicated over ``data``. Every configuration is served (model-axis TP folds into the
     row split; non-dividing sizes pad with weight-0 rows); the only
     GSPMD fallback is the explicit ``manual_learn=False`` escape hatch.
     """
@@ -328,9 +325,7 @@ def _update_impl(
         (``rows_sharded`` — zero-collective local minibatch selection) and
         replicated over ``data`` otherwise. Inside, each device vmaps over
         its local policies and optimizes the ``data``-sliced minibatches
-        (see ppo._ppo). Because the region is manual over every axis,
-        ``pallas_backend_ok`` holds and the fused Mosaic kernels serve the
-        forward/backward (BASELINE.json north star: kernels at pod scale).
+        (see ppo._ppo).
         """
         mesh = make_mesh(cfg.mesh)
 
@@ -387,9 +382,8 @@ def _update_impl(
             ts_spec = ts_spec.replace(opt_state=map_adam_moments(
                 ts_spec.opt_state,
                 lambda sub: jax.tree.map(lambda _: zero_spec, sub)))
-        # check_vma=False: pallas_call inside shard_map has no vma
-        # metadata on its out_shapes; data-axis invariance of every output
-        # is established by the pmeans/psums in ppo._ppo_update and
+        # check_vma=False: data-axis invariance of every output is
+        # established by the pmeans/psums in ppo._ppo_update and
         # asserted by the sharded == single-device tests
         # (tests/test_sharding.py).
         mapped = jax.shard_map(
@@ -445,8 +439,7 @@ def _update_impl(
                 # reshard or recompile on the next call). The train-slice
                 # write itself still materializes gathered inputs (its
                 # slice boundaries cross shards; ~38 MB/update at the
-                # config-#5 target mesh, scripts/comm_budget.py —
-                # acceptable; separating train/past storage would remove
+                # config-#5 target mesh — acceptable; separating train/past storage would remove
                 # it at the cost of re-plumbing every population gather).
                 mesh = make_mesh(cfg.mesh)
                 pspec = jax.sharding.NamedSharding(
@@ -629,7 +622,7 @@ def _init_training(cfg, sim_fns, policy, sim_ctrl, user_hooks, restore_ckpt,
 # PBT outer loop: Elo tournament + population evolution
 # ---------------------------------------------------------------------------
 
-class MatchmakeEvalState(flax.struct.PyTreeNode):
+class MatchmakeEvalState(PyTreeNode):
     policy_elos: jax.Array
 
 
@@ -921,7 +914,7 @@ def update_population(training_mgr: TrainingManager, elo_deltas=None):
 
     Jitted and cached per manager like ``eval_elo`` — an eager call would
     otherwise pay one first-call XLA compile per op of the cull/past
-    programs (~110s measured at BASELINE config #4 scale on TPU), and
+    programs, and
     repeated in-loop calls reuse the compiled program. ``eval_elo_warmup``
     pre-compiles this too. Wrapping the call in an outer ``jax.jit`` stays
     supported (the inner jit inlines)."""

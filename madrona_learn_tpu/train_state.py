@@ -12,7 +12,7 @@ train_state.py:24-487):
   orbax checkpoint save/load (PRNG-key unwrap/rewrap), population re-slicing,
   and eval-time policy loading.
 
-TPU-native deviation: optimizers are built *learning-rate-free* (adam moments
+Deviation from the reference: optimizers are built *learning-rate-free* (adam moments
 + global-norm clip only) and the learning rate is applied from the on-device
 ``hyper_params.lr`` at update time. In the reference the lr is baked into the
 optax chain at init (reference: ppo.py:84-90), so PBT lr mutation never
@@ -26,21 +26,19 @@ import os
 from functools import partial
 from typing import Any, Callable, Optional
 
-import flax
 import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
-import orbax.checkpoint
-from flax.core import FrozenDict, frozen_dict
-from flax.training.dynamic_scale import DynamicScale
 from jax import random
 
 from .algo import AlgoBase, HyperParams
 from .config import TrainConfig
 from .observations import ObservationsPreprocess, ObservationsPreprocessNoop
 from .ops.ema import EMAEstimate, EMANormalizer
+from .ops.loss_scale import DynamicScale
 from .policy import Policy
+from .struct import FrozenDict, PyTreeNode, field, freeze
 
 
 def map_adam_moments(opt_state, fn):
@@ -98,30 +96,30 @@ def chunk_adam_moments(opt_state, zero_rows: int):
     return out
 
 
-class MovingEpisodeScore(flax.struct.PyTreeNode):
+class MovingEpisodeScore(PyTreeNode):
     mean: jax.Array
     var: jax.Array
     N: jax.Array
 
 
-class MMR(flax.struct.PyTreeNode):
+class MMR(PyTreeNode):
     elo: jax.Array
 
 
-class PolicyState(flax.struct.PyTreeNode):
-    apply_fn: Callable = flax.struct.field(pytree_node=False)
-    rnn_reset_fn: Callable = flax.struct.field(pytree_node=False)
+class PolicyState(PyTreeNode):
+    apply_fn: Callable = field(pytree_node=False)
+    rnn_reset_fn: Callable = field(pytree_node=False)
 
     params: FrozenDict
     batch_stats: FrozenDict
 
-    obs_preprocess: ObservationsPreprocess = flax.struct.field(
+    obs_preprocess: ObservationsPreprocess = field(
         pytree_node=False)
     obs_preprocess_state: FrozenDict
 
     reward_hyper_params: Optional[jax.Array]
 
-    get_episode_scores_fn: Callable = flax.struct.field(pytree_node=False)
+    get_episode_scores_fn: Callable = field(pytree_node=False)
     episode_score: Optional[MovingEpisodeScore]
     mmr: Optional[MMR]
 
@@ -129,11 +127,11 @@ class PolicyState(flax.struct.PyTreeNode):
         return self.replace(**changes)
 
 
-class PolicyTrainState(flax.struct.PyTreeNode):
-    value_normalizer: Optional[EMANormalizer] = flax.struct.field(
+class PolicyTrainState(PyTreeNode):
+    value_normalizer: Optional[EMANormalizer] = field(
         pytree_node=False)
-    max_advantage_est: EMAEstimate = flax.struct.field(pytree_node=False)
-    tx: optax.GradientTransformation = flax.struct.field(pytree_node=False)
+    max_advantage_est: EMAEstimate = field(pytree_node=False)
+    tx: optax.GradientTransformation = field(pytree_node=False)
 
     initial_weight_norms: FrozenDict
     value_normalizer_state: Optional[FrozenDict]
@@ -151,6 +149,14 @@ class PolicyTrainState(flax.struct.PyTreeNode):
         return rnd, self.update(update_prng_key=next_key)
 
 
+def _ocp():
+    """orbax, imported only when a checkpoint is written or read: it is
+    not needed to train."""
+    import orbax.checkpoint
+
+    return orbax.checkpoint
+
+
 _ASYNC_CHECKPOINTER = None
 
 
@@ -159,8 +165,8 @@ def _async_checkpointer():
     state, so it must be shared across saves)."""
     global _ASYNC_CHECKPOINTER
     if _ASYNC_CHECKPOINTER is None:
-        _ASYNC_CHECKPOINTER = orbax.checkpoint.AsyncCheckpointer(
-            orbax.checkpoint.PyTreeCheckpointHandler())
+        _ASYNC_CHECKPOINTER = _ocp().AsyncCheckpointer(
+            _ocp().PyTreeCheckpointHandler())
     return _ASYNC_CHECKPOINTER
 
 
@@ -170,7 +176,7 @@ def wait_for_checkpoints():
         _ASYNC_CHECKPOINTER.wait_until_finished()
 
 
-class TrainStateManager(flax.struct.PyTreeNode):
+class TrainStateManager(PyTreeNode):
     """Stacked per-policy states + population-level PRNG and user state."""
 
     policy_states: PolicyState
@@ -216,7 +222,7 @@ class TrainStateManager(flax.struct.PyTreeNode):
         """
         path = os.path.abspath(path)  # orbax requires absolute paths
         if block:
-            checkpointer = orbax.checkpoint.PyTreeCheckpointer()
+            checkpointer = _ocp().PyTreeCheckpointer()
             checkpointer.save(path, self._ckpt_tree(next_update))
         else:
             # Snapshot on-device first: the caller typically donates the
@@ -232,9 +238,9 @@ class TrainStateManager(flax.struct.PyTreeNode):
         corresponding leaf of ``self`` currently has. Call from ALL
         processes."""
         path = os.path.abspath(path)
-        checkpointer = orbax.checkpoint.PyTreeCheckpointer()
+        checkpointer = _ocp().PyTreeCheckpointer()
         restore_desc = self._ckpt_tree(jnp.zeros((), jnp.int32))
-        restore_args = orbax.checkpoint.checkpoint_utils.\
+        restore_args = _ocp().checkpoint_utils.\
             construct_restore_args(restore_desc)
         loaded = checkpointer.restore(
             path, item=restore_desc, restore_args=restore_args)
@@ -263,10 +269,10 @@ class TrainStateManager(flax.struct.PyTreeNode):
         placement) — for population surgery and cross-platform inspection
         where the saving topology may not exist."""
         path = os.path.abspath(path)
-        checkpointer = orbax.checkpoint.PyTreeCheckpointer()
+        checkpointer = _ocp().PyTreeCheckpointer()
         meta = checkpointer.metadata(path).item_metadata
         restore_args = jax.tree.map(
-            lambda _: orbax.checkpoint.RestoreArgs(restore_type=np.ndarray),
+            lambda _: _ocp().RestoreArgs(restore_type=np.ndarray),
             meta.tree)
         return checkpointer.restore(path, restore_args=restore_args)
 
@@ -274,7 +280,7 @@ class TrainStateManager(flax.struct.PyTreeNode):
     def slice_checkpoint(src, dst, train_select, past_select):
         """Re-slice a checkpointed population into a new train/past split."""
         src, dst = os.path.abspath(src), os.path.abspath(dst)
-        checkpointer = orbax.checkpoint.PyTreeCheckpointer()
+        checkpointer = _ocp().PyTreeCheckpointer()
         loaded = TrainStateManager.restore_host(src)
 
         train_states = jax.tree.map(
@@ -299,7 +305,7 @@ class TrainStateManager(flax.struct.PyTreeNode):
     def load_policies(policy: Policy, path):
         """Load just the policy states from a checkpoint (for eval)."""
         path = os.path.abspath(path)
-        checkpointer = orbax.checkpoint.PyTreeCheckpointer()
+        checkpointer = _ocp().PyTreeCheckpointer()
         loaded = checkpointer.restore(path)
 
         actor_critic = policy.actor_critic
@@ -332,7 +338,7 @@ class TrainStateManager(flax.struct.PyTreeNode):
             batch_stats=jax.tree.map(
                 to_jax, loaded["policy_states"]["batch_stats"]),
             obs_preprocess=obs_preprocess,
-            obs_preprocess_state=frozen_dict.freeze(jax.tree.map(
+            obs_preprocess_state=freeze(jax.tree.map(
                 to_jax, loaded["policy_states"]["obs_preprocess_state"])),
             reward_hyper_params=jax.tree.map(
                 to_jax, loaded["policy_states"]["reward_hyper_params"]),

@@ -10,8 +10,8 @@
 // the native and pure-JAX envs are interchangeable and cross-checkable.
 //
 // Parallelized over worlds with a simple thread pool (std::thread), since a
-// production host-side simulator must feed a TPU chip faster than Python
-// could.
+// production host-side simulator must feed an accelerator faster than
+// Python could.
 
 #include <algorithm>
 #include <atomic>

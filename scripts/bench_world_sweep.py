@@ -1,7 +1,7 @@
-"""Sweep bench.py's NUM_WORLDS on TPU in one process (amortizes warmup).
+"""Sweep bench.py's world count on the GPU in one process (amortizes warmup).
 
-The v5e sweet spot can shift as kernels change the collect/learn balance;
-rerun after perf work: python scripts/bench_world_sweep.py
+The throughput sweet spot can shift as kernels change the collect/learn
+balance; rerun after perf work: python scripts/bench_world_sweep.py
 """
 
 import sys
@@ -10,15 +10,14 @@ import time
 sys.path.insert(0, ".")
 
 import jax
-import jax.numpy as jnp
+
+from madrona_learn_tpu.utils.platform import compute_dtype
 
 import bench
 
 
 def run(num_worlds, timed=10):
-    bench.NUM_WORLDS = num_worlds
-    dtype = jnp.bfloat16 if jax.default_backend() == "tpu" else jnp.float32
-    mgr = bench.build_manager(dtype)
+    mgr = bench.build_manager(compute_dtype(), num_worlds)
     update = jax.jit(lambda m: m.update_iter(), donate_argnums=0)
     mgr = update(mgr)
     jax.device_get(mgr.metrics.metrics["Loss"].mean)

@@ -293,9 +293,8 @@ def test_eval_elo_warmup_precompiles_tournament():
     assert first_call < cold / 4, (cold, warm_compile, first_call)
     assert np.isfinite(np.asarray(mgr2.state.policy_states.mmr.elo)).all()
 
-    # The population update is warmed too (round-3 campaign: an un-warmed
-    # update_population cost ~110s of first-call compiles at config #4
-    # scale on TPU while the warmed tournament itself was fast).
+    # The population update is warmed too: un-warmed, its first call pays
+    # the compile of the cull/past programs.
     t0 = time.perf_counter()
     mgr_cold2 = mlt.update_population(mgr_cold)
     jax.block_until_ready(mgr_cold2.state.policy_states.mmr.elo)

@@ -4,7 +4,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from flax.core import FrozenDict
+from madrona_learn_tpu.struct import FrozenDict
 
 import madrona_learn_tpu as mlt
 from madrona_learn_tpu.envs import ToyEnvConfig, make_duel_env

@@ -16,7 +16,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
-from flax.core import FrozenDict
+from madrona_learn_tpu.struct import FrozenDict
 from jax import random
 
 import madrona_learn_tpu as mlt

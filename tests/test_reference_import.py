@@ -37,7 +37,7 @@ def _build_ref_ac():
     import flax
     import flax.linen as nn
     import madrona_learn as ml
-    from flax.core import FrozenDict
+    from madrona_learn_tpu.struct import FrozenDict
     from jax import random
     from madrona_learn.models import (
         MLP, DenseLayerCritic, DenseLayerDiscreteActor)

@@ -91,16 +91,16 @@ def test_zscore_matches_reference():
 
 
 def test_gae_pallas_kernel_matches_reference():
-    """The Pallas GAE kernel (interpret mode on CPU) against the reference's
-    fori_loop — the strongest cross-implementation check we have."""
-    from madrona_learn_tpu.ops.pallas.gae import compute_advantages_pallas
+    """The GAE scan that replaced the Pallas kernel, at the kernel test's
+    two-chunk shape, against the reference's fori_loop."""
+    from madrona_learn_tpu.ops.gae import compute_advantages
 
     rewards, values, dones, bootstrap = _fake_trajectories(5, C=2, TC=8,
                                                            P=1, B=16)
     cfg = SimpleNamespace(gamma=GAMMA, gae_lambda=LAMBDA)
     ref = ref_compute_advantages(cfg, rewards, values, dones, bootstrap)
-    ours = compute_advantages_pallas(
-        GAMMA, LAMBDA, rewards, values, dones, bootstrap, interpret=True)
+    ours = compute_advantages(
+        GAMMA, LAMBDA, rewards, values, dones, bootstrap)
     np.testing.assert_allclose(
         np.asarray(ref), np.asarray(ours), rtol=1e-6, atol=1e-6)
 

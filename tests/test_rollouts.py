@@ -16,7 +16,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from flax.core import FrozenDict
+from madrona_learn_tpu.struct import FrozenDict
 from jax import random
 
 from madrona_learn_tpu.envs.fake_sim import (

@@ -144,7 +144,7 @@ def test_actor_only_path():
         DenseLayerDiscreteActor, DictActor, LSTM, MLP,
         RecurrentBackboneEncoder,
     )
-    from flax.core import FrozenDict
+    from madrona_learn_tpu.struct import FrozenDict
 
     dtype = jnp.float32
     actions_cfg = mlt.DiscreteActionsConfig(actions_num_buckets=[5])

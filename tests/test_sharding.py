@@ -26,8 +26,10 @@ def eight_devices():
 
 
 def test_dryrun_multichip(eight_devices):
+    import os
     import sys
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
     import __graft_entry__ as ge
 
     ge.dryrun_multichip(8)
@@ -162,140 +164,6 @@ def test_sharded_eval_elo_matches_single_device(eight_devices):
         np.asarray(mgr_out.state.policy_states.mmr.elo)).all()
 
 
-def test_pallas_gate_multi_device_rules(eight_devices, monkeypatch):
-    """Mosaic custom calls cannot be auto-partitioned (a multi-device GSPMD
-    jit containing one fails to compile), so the kernel gate must disable
-    the fused paths on multi-device processes unless the trace sits inside
-    a fully-manual shard_map."""
-    import madrona_learn_tpu.models.attention as mattn
-
-    # Pretend the backend is TPU so only the multi-device logic is probed.
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    assert jax.config.jax_default_device is None
-
-    # 8 CPU devices, plain trace: gate OFF.
-    assert jax.device_count() == 8
-    assert not mattn._pallas_backend_ok()
-
-    # Single-device process: gate ON.
-    monkeypatch.setattr(jax, "device_count", lambda *a, **kw: 1)
-    assert mattn._pallas_backend_ok()
-    monkeypatch.undo()
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-
-    # Explicit override for single-device jits on multi-chip hosts.
-    monkeypatch.setenv("MADRONA_LEARN_TPU_FORCE_PALLAS", "1")
-    assert mattn._pallas_backend_ok()
-    monkeypatch.delenv("MADRONA_LEARN_TPU_FORCE_PALLAS")
-
-    # Inside a shard_map manual over EVERY mesh axis: gate ON (each
-    # program instance is single-device, the case Mosaic supports).
-    from jax.sharding import Mesh, PartitionSpec as P
-
-    mesh = Mesh(np.asarray(eight_devices), ("data",))
-    seen = []
-
-    def body(x):
-        seen.append(mattn._pallas_backend_ok())
-        return x * 2
-
-    jax.shard_map(body, mesh=mesh, in_specs=P("data"),
-                  out_specs=P("data"))(jnp.ones((8,)))
-    assert seen == [True]
-
-    # Manual over only SOME axes of a 2-axis mesh: gate OFF (Mosaic
-    # rejects partially-manual contexts).
-    mesh2 = Mesh(np.asarray(eight_devices).reshape(4, 2),
-                 ("data", "policy"))
-    seen2 = []
-
-    def body2(x):
-        seen2.append(mattn._pallas_backend_ok())
-        return x * 2
-
-    jax.shard_map(body2, mesh=mesh2, in_specs=P("data"),
-                  out_specs=P("data"), axis_names={"data"})(jnp.ones((8,)))
-    assert seen2 == [False]
-
-    # A pinned TPU jax_default_device must NOT short-circuit the
-    # multi-device checks (an explicitly multi-device GSPMD jit traced
-    # under a pinned device still can't partition Mosaic calls).
-    class FakeTpuDev:
-        platform = "tpu"
-
-    monkeypatch.setattr(
-        type(jax.config), "jax_default_device",
-        property(lambda self: FakeTpuDev()))
-    assert jax.config.jax_default_device is not None
-    assert jax.device_count() == 8
-    assert not mattn._pallas_backend_ok()
-    # ...but with one device it still counts as the serving case.
-    monkeypatch.setattr(jax, "device_count", lambda *a, **kw: 1)
-    assert mattn._pallas_backend_ok()
-
-
-def test_sharded_training_with_use_pallas_models(eight_devices):
-    """A data/policy-sharded update with use_pallas models + pallas GAE
-    enabled must compile and match (the gate falls back to the jnp twins
-    on multi-device traces instead of crashing Mosaic partitioning)."""
-    import madrona_learn_tpu as mlt
-    from madrona_learn_tpu.envs import ToyEnvConfig, make_toy_env
-    from madrona_learn_tpu.models import (
-        ActorCritic, BackboneShared, DenseLayerCritic,
-        DenseLayerDiscreteActor, DictActor, LSTM, MLP,
-        RecurrentBackboneEncoder)
-
-    num_worlds = 32
-    dtype = jnp.float32
-
-    def build(seed):
-        actions = {"move": mlt.DiscreteActionsConfig(
-            actions_num_buckets=[5])}
-        sim_fns = make_toy_env(ToyEnvConfig(
-            num_worlds=num_worlds, episode_len=20, grid_size=5, seed=seed))
-        ac = ActorCritic(
-            backbone=BackboneShared(
-                prefix=lambda obs, train: jnp.concatenate(
-                    [obs["delta"], obs["time"]], axis=-1),
-                encoder=RecurrentBackboneEncoder(
-                    net=MLP(num_channels=32, num_layers=1, dtype=dtype),
-                    rnn=LSTM(num_hidden_channels=128, num_layers=1,
-                             dtype=dtype, use_pallas=True))),
-            actor=DictActor(heads={"move": DenseLayerDiscreteActor(
-                cfg=actions["move"], dtype=dtype)}),
-            critic=DenseLayerCritic(dtype=dtype))
-        policy = mlt.Policy(
-            actor_critic=ac,
-            obs_preprocess=mlt.ObservationsCaster.create(dtype=dtype))
-        cfg = mlt.TrainConfig(
-            num_worlds=num_worlds, num_agents_per_world=1, num_updates=1,
-            actions=actions, steps_per_update=16, num_bptt_chunks=2,
-            lr=1e-3, gamma=0.99, gae_lambda=0.95, seed=seed,
-            metrics_buffer_size=1,
-            algo=mlt.PPOConfig(
-                num_epochs=1, minibatch_size=num_worlds,
-                clip_coef=0.2, value_loss_coef=0.5, entropy_coef=0.01,
-                max_grad_norm=0.5),
-            dreamer_v3_critic=False,
-            mesh=mlt.MeshConfig(data=4, policy=1),
-            use_pallas_gae=True)
-        return mlt.init_training(
-            None, cfg, sim_fns, policy,
-            init_sim_ctrl=jnp.zeros((1,), jnp.int32))
-
-    update = jax.jit(lambda m: m.update_iter(), donate_argnums=0)
-    loss_single = np.asarray(
-        update(build(41)).metrics.metrics["Loss"].mean)
-
-    mesh = make_mesh(mlt.MeshConfig(data=4, policy=1), eight_devices[:4])
-    mgr_sharded = shard_training_manager(build(41), mesh)
-    loss_sharded = np.asarray(
-        update(mgr_sharded).metrics.metrics["Loss"].mean)
-
-    np.testing.assert_allclose(loss_single, loss_sharded, rtol=1e-5,
-                               atol=1e-6)
-
-
 def test_shard_local_reorder_reduces_collectives(eight_devices):
     """The shard-local reorder must compile to (near-)collective-free SPMD
     code under a data-sharded batch, while the global construction needs
@@ -365,14 +233,15 @@ def test_train_sharded_example(tmp_path):
 
     env = {k: v for k, v in os.environ.items()
            if k not in ("PYTHONPATH", "JAX_PLATFORMS")}
-    env["PYTHONPATH"] = "/root/repo"
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env["PYTHONPATH"] = repo
     env["JAX_PLATFORMS"] = "cpu"
     env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
     out = subprocess.run(
         [sys.executable, "examples/train_sharded.py", "--data", "4",
          "--policy", "2", "--num-updates", "6", "--eval-interval", "3",
          "--ckpt-dir", str(tmp_path / "ck")],
-        capture_output=True, text=True, cwd="/root/repo", timeout=560,
+        capture_output=True, text=True, cwd=repo, timeout=560,
         env=env)
     assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
     assert "elos=" in out.stdout and "done;" in out.stdout
@@ -430,124 +299,18 @@ def test_shard_local_layout_matches_single_device(eight_devices):
                                atol=1e-6)
 
 
-def test_manual_learn_region_routes_kernels(eight_devices, monkeypatch):
-    """VERDICT r2 item 2 done-criteria: on a data>1 mesh the kernel gate
-    reports True inside the manual shard_map learn region and the fused
-    kernels (not the jnp twins) execute, proven in interpret mode on the
-    virtual CPU mesh with sharded == single-device equality."""
-    import madrona_learn_tpu.models.attention as mattn
-    import madrona_learn_tpu.ops.pallas.gae as pgae
-    import madrona_learn_tpu.ops.pallas.lstm as plstm
-    from madrona_learn_tpu.envs import ToyEnvConfig, make_toy_env
-    from madrona_learn_tpu.models import (
-        ActorCritic, BackboneShared, DenseLayerCritic,
-        DenseLayerDiscreteActor, DictActor, LSTM, MLP,
-        RecurrentBackboneEncoder)
-
-    # The real gate minus the TPU-backend check: kernels route exactly
-    # when the trace is manual over every mesh axis.
-    def manual_only_gate():
-        mesh = jax.sharding.get_abstract_mesh()
-        manual = set(getattr(mesh, "manual_axes", ()))
-        return bool(mesh.axis_names) and manual == set(mesh.axis_names)
-
-    monkeypatch.setattr(mattn, "_pallas_backend_ok", manual_only_gate)
-
-    calls = {"lstm": 0, "gae": 0}
-    orig_lstm = plstm.lstm_sequence
-    orig_gae = pgae.compute_advantages_pallas
-
-    def lstm_interp(*args, **kw):
-        calls["lstm"] += 1
-        kw["interpret"] = True
-        return orig_lstm(*args, **kw)
-
-    def gae_interp(*args, **kw):
-        calls["gae"] += 1
-        kw["interpret"] = True
-        return orig_gae(*args, **kw)
-
-    monkeypatch.setattr(plstm, "lstm_sequence", lstm_interp)
-    monkeypatch.setattr(pgae, "compute_advantages_pallas", gae_interp)
-
-    num_worlds = 32
-    dtype = jnp.float32
-
-    # The data=4 mesh defaults to 4-block stratified minibatch composition
-    # (zero-collective row selection inside the manual region); pin the
-    # same composition on the single-device comparator so the runs are
-    # bit-comparable — minibatch_stratify exists exactly so learning
-    # curves stay independent of deployment mesh size.
-    def build(seed, mesh_cfg):
-        actions = {"move": mlt.DiscreteActionsConfig(
-            actions_num_buckets=[5])}
-        sim_fns = make_toy_env(ToyEnvConfig(
-            num_worlds=num_worlds, episode_len=20, grid_size=5, seed=seed))
-        ac = ActorCritic(
-            backbone=BackboneShared(
-                prefix=lambda obs, train: jnp.concatenate(
-                    [obs["delta"], obs["time"]], axis=-1),
-                encoder=RecurrentBackboneEncoder(
-                    net=MLP(num_channels=32, num_layers=1, dtype=dtype),
-                    rnn=LSTM(num_hidden_channels=128, num_layers=1,
-                             dtype=dtype, use_pallas=True))),
-            actor=DictActor(heads={"move": DenseLayerDiscreteActor(
-                cfg=actions["move"], dtype=dtype)}),
-            critic=DenseLayerCritic(dtype=dtype))
-        policy = mlt.Policy(
-            actor_critic=ac,
-            obs_preprocess=mlt.ObservationsCaster.create(dtype=dtype))
-        cfg = mlt.TrainConfig(
-            num_worlds=num_worlds, num_agents_per_world=1, num_updates=1,
-            actions=actions, steps_per_update=16, num_bptt_chunks=2,
-            lr=1e-3, gamma=0.99, gae_lambda=0.95, seed=seed,
-            metrics_buffer_size=1,
-            algo=mlt.PPOConfig(
-                num_epochs=1, minibatch_size=num_worlds,
-                clip_coef=0.2, value_loss_coef=0.5, entropy_coef=0.01,
-                max_grad_norm=0.5),
-            dreamer_v3_critic=False,
-            mesh=mesh_cfg,
-            minibatch_stratify=4,
-            use_pallas_gae=True)
-        return mlt.init_training(
-            None, cfg, sim_fns, policy,
-            init_sim_ctrl=jnp.zeros((1,), jnp.int32))
-
-    update = jax.jit(lambda m: m.update_iter(), donate_argnums=0)
-
-    # Single-device comparator: no mesh, GSPMD-free; the gate is False on
-    # every plain trace so the jnp twins run.
-    loss_single = np.asarray(
-        update(build(41, None)).metrics.metrics["Loss"].mean)
-    assert calls == {"lstm": 0, "gae": 0}
-
-    # Sharded run with the manual learn region + manual GAE region: the
-    # kernels must actually trace.
-    mesh = make_mesh(mlt.MeshConfig(data=4, policy=1), eight_devices[:4])
-    mgr_sharded = shard_training_manager(build(41, mlt.MeshConfig(
-        data=4, policy=1)), mesh)
-    loss_sharded = np.asarray(
-        update(mgr_sharded).metrics.metrics["Loss"].mean)
-
-    assert calls["lstm"] > 0, "fused LSTM kernel did not route"
-    assert calls["gae"] > 0, "fused GAE kernel did not route"
-    np.testing.assert_allclose(loss_single, loss_sharded, rtol=1e-5,
-                               atol=1e-6)
-
-
 def test_manual_dynamic_scale_matches_flax(eight_devices):
-    """ppo._scaler_value_and_grad_manual under a manual shard_map must
-    reproduce flax's DynamicScale.value_and_grad on the equivalent global
+    """DynamicScale.value_and_grad(axis_name=...) under a manual shard_map
+    must reproduce flax's DynamicScale.value_and_grad on the equivalent global
     batch step for step — including a backoff on a non-finite gradient and
     a growth step at growth_interval — with the scale/fin_steps update
     identical on every shard (shard-invariance comes from the pmean'd
     global gradient, no extra collective)."""
-    from flax.training.dynamic_scale import DynamicScale
+    from flax.training.dynamic_scale import DynamicScale as FlaxDynamicScale
     from jax import lax
     from jax.sharding import Mesh, PartitionSpec as P
 
-    from madrona_learn_tpu.ppo import _scaler_value_and_grad_manual
+    from madrona_learn_tpu.ops.loss_scale import DynamicScale
 
     mesh = Mesh(np.array(eight_devices[:4]), ("data",))
     x_global = jnp.linspace(0.1, 1.0, 32, dtype=jnp.float32)
@@ -565,8 +328,8 @@ def test_manual_dynamic_scale_matches_flax(eight_devices):
             def loss_fn(p):
                 return lax.pmean(
                     loss_global(p, x_shard, boost), "data"), ()
-            new_ds, fin, (loss, _), grad = _scaler_value_and_grad_manual(
-                ds, loss_fn, w, "data")
+            new_ds, fin, (loss, _), grad = ds.value_and_grad(
+                loss_fn, has_aux=True, axis_name="data")(w)
             return new_ds, fin, loss, grad
 
         return jax.shard_map(
@@ -584,7 +347,9 @@ def test_manual_dynamic_scale_matches_flax(eight_devices):
     # Step 2 overflows (backoff 1024 -> 512); steps 3-5 are finite so step 5
     # enters with fin_steps == growth_interval == 2 and grows 512 -> 1024.
     boosts = [1.0, 1.0, 1e6, 1.0, 1.0, 1.0, 1.0]
-    ds_m = ds_f = DynamicScale(
+    ds_m = DynamicScale(
+        growth_interval=2, fin_steps=jnp.int32(0), scale=jnp.float32(1024.0))
+    ds_f = FlaxDynamicScale(
         growth_interval=2, fin_steps=jnp.int32(0), scale=jnp.float32(1024.0))
     w_m = w_f = w0
     saw_backoff = saw_growth = False
@@ -844,7 +609,7 @@ def test_manual_learn_nondividing_sizes_match_gspmd(eight_devices, case):
 def test_update_step_collective_budget(eight_devices):
     """Structural communication guarantees of the compiled sharded update
     step (VERDICT r3 items 1+2), asserted on the optimized HLO via the
-    comm-budget parser (scripts/comm_budget.py):
+    collective parser (tests/hlo_collectives.py):
 
     1. The manual learn region pays NO store replication over ``data`` —
        no all-gather/all-to-all over the data axis anywhere in the Learn
@@ -859,13 +624,7 @@ def test_update_step_collective_budget(eight_devices):
        while-loops (this was 97% of all step communication — 44.85 GB vs
        1.35 GB per device per update at the weak-scaled config-#5 shape).
     """
-    import os
-    import sys
-
-    sys.path.insert(0, os.path.join(
-        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        "scripts"))
-    import comm_budget as cb
+    import hlo_collectives as cb
 
     mesh_cfg = mlt.MeshConfig(data=2, policy=2, manual_learn=True)
     mgr = build_training_mgr(seed=91, mesh=mesh_cfg)
@@ -941,19 +700,12 @@ def test_manual_learn_model_axis_matches_gspmd(eight_devices):
     split (recurrent-sequence TP would put a collective inside every time
     step). One update on a (data=2, policy=1, model=2) mesh must equal
     the GSPMD comparator (same cfg, manual_learn=False) down to params."""
-    import os
-    import sys
-
+    import hlo_collectives as cb
     from madrona_learn_tpu.envs import ToyEnvConfig, make_toy_env
     from madrona_learn_tpu.models import (
         ActorCritic, BackboneShared, DenseLayerCritic,
         DenseLayerDiscreteActor, DictActor, LSTM, MLP,
         RecurrentBackboneEncoder)
-
-    sys.path.insert(0, os.path.join(
-        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        "scripts"))
-    import comm_budget as cb
 
     num_worlds = 32
     dtype = jnp.float32
@@ -1421,140 +1173,6 @@ def test_manual_collect_matches_gspmd(eight_devices, normalize_values):
             np.asarray(x), np.asarray(y), rtol=1e-4, atol=1e-5),
         jax.device_get(outs["manual"].state.policy_states.params),
         jax.device_get(outs["gspmd"].state.policy_states.params))
-
-
-def test_manual_collect_region_routes_kernels(eight_devices, monkeypatch):
-    """VERDICT r4 item 2 done-criteria: inside the manual collect region
-    the kernel gate holds — the GAE kernel runs inside the region and the
-    entity-attention kernel serves the per-step ROLLOUT forward — proven
-    in interpret mode on the virtual CPU mesh. Equality anchor: the
-    manual-collect run (kernels routed via the manual-trace gate) must
-    match the GSPMD-collect comparator (gate False, twins) BIT-FOR-BIT on
-    the LSTM+GAE model, whose kernels are exact twins of their jnp
-    references. The attention kernel (f32-softmax math ≠ flax's
-    compute-dtype attention, so discrete action sampling diverges across
-    implementations by design) gets its own routing assertion without a
-    cross-implementation trajectory comparison."""
-    import madrona_learn_tpu.models.attention as mattn
-    import madrona_learn_tpu.ops.pallas.attention as pattn
-    import madrona_learn_tpu.ops.pallas.gae as pgae
-    from madrona_learn_tpu.envs import ToyEnvConfig, make_duel_env
-    from madrona_learn_tpu.models import (
-        ActorCritic, BackboneEncoder, BackboneShared, DenseLayerCritic,
-        DenseLayerDiscreteActor, DictActor, EntitySelfAttentionNet)
-    from madrona_learn_tpu.rollouts import RolloutManager
-    from test_pbt_e2e import build_training_mgr as build_pbt
-
-    def manual_only_gate():
-        mesh = jax.sharding.get_abstract_mesh()
-        manual = set(getattr(mesh, "manual_axes", ()))
-        return bool(mesh.axis_names) and manual == set(mesh.axis_names)
-
-    monkeypatch.setattr(mattn, "_pallas_backend_ok", manual_only_gate)
-
-    calls = {"mha": 0, "gae": 0}
-    orig_mha = pattn.mha
-    orig_gae = pgae.compute_advantages_pallas
-
-    def mha_interp(*args, **kw):
-        calls["mha"] += 1
-        kw["interpret"] = True
-        return orig_mha(*args, **kw)
-
-    def gae_interp(*args, **kw):
-        calls["gae"] += 1
-        kw["interpret"] = True
-        return orig_gae(*args, **kw)
-
-    monkeypatch.setattr(pattn, "mha", mha_interp)
-    monkeypatch.setattr(pgae, "compute_advantages_pallas", gae_interp)
-
-    update = jax.jit(lambda m: m.update_iter())
-
-    # --- Part A: bitwise equality with kernels routed in the region -----
-    outs = {}
-    for name, mc in (("manual", True), ("gspmd", False)):
-        mesh_cfg = mlt.MeshConfig(data=2, policy=2, manual_collect=mc)
-        mgr = build_pbt(seed=29, mesh=mesh_cfg)
-        mesh = make_mesh(mesh_cfg, eight_devices[:4])
-        mgr = shard_training_manager(mgr, mesh)
-        outs[name] = update(mgr)
-
-    a = np.asarray(outs["manual"].metrics.metrics["Loss"].mean)
-    b = np.asarray(outs["gspmd"].metrics.metrics["Loss"].mean)
-    np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-7)
-
-    # --- Part B: entity attention routes inside the collect region ------
-    num_worlds = 32
-    dtype = jnp.float32
-    actions = {"move": mlt.DiscreteActionsConfig(actions_num_buckets=[5])}
-    base = make_duel_env(ToyEnvConfig(
-        num_worlds=num_worlds, episode_len=8, num_teams=2, team_size=1,
-        seed=33))
-
-    def wrap_obs(obs):
-        feat = jnp.concatenate([obs["time"], obs["acc"]], axis=-1)
-        return {"self": feat, "landmarks": jnp.stack([feat] * 3, axis=-2)}
-
-    sim_fns = {
-        "init": lambda: (lambda o: {"state": o["state"],
-                                    "obs": wrap_obs(o["obs"])})(
-            base["init"]()),
-        "step": lambda si: (lambda o: {**o, "obs": wrap_obs(o["obs"])})(
-            base["step"](si)),
-        "data_parallel": True,
-    }
-
-    ac = ActorCritic(
-        backbone=BackboneShared(
-            prefix=lambda obs, train: obs,
-            encoder=BackboneEncoder(
-                net=EntitySelfAttentionNet(
-                    num_embed_channels=32, num_out_channels=32,
-                    num_heads=2, dtype=dtype, use_pallas=True))),
-        actor=DictActor(heads={"move": DenseLayerDiscreteActor(
-            cfg=actions["move"], dtype=dtype)}),
-        critic=DenseLayerCritic(dtype=dtype))
-    policy = mlt.Policy(
-        actor_critic=ac,
-        get_episode_scores=lambda er: (
-            jnp.where(er[0] == 0, 1.0, jnp.where(er[0] == 1, 0.0, 0.5)),
-            jnp.where(er[0] == 0, 0.0, jnp.where(er[0] == 1, 1.0, 0.5))))
-    mesh_cfg = mlt.MeshConfig(data=2, policy=2)
-    cfg = mlt.TrainConfig(
-        num_worlds=num_worlds, num_agents_per_world=2, num_updates=1,
-        actions=actions, steps_per_update=8, num_bptt_chunks=2,
-        lr=1e-3, gamma=0.99, gae_lambda=0.95, seed=33,
-        metrics_buffer_size=1,
-        algo=mlt.PPOConfig(
-            num_epochs=1, minibatch_size=10,
-            clip_coef=0.2, value_loss_coef=0.5, entropy_coef=0.01,
-            max_grad_norm=0.5),
-        pbt=mlt.PBTConfig(
-            num_teams=2, team_size=1, num_train_policies=4,
-            num_past_policies=2, self_play_portion=0.25,
-            cross_play_portion=0.5, past_play_portion=0.25),
-        dreamer_v3_critic=False,
-        use_pallas_gae=True,
-        mesh=mesh_cfg)
-    mgr = mlt.init_training(
-        None, cfg, sim_fns, policy,
-        init_sim_ctrl=jnp.zeros((1,), jnp.int32))
-    mesh = make_mesh(mesh_cfg, eight_devices[:4])
-    mgr = shard_training_manager(mgr, mesh)
-    assert RolloutManager(
-        mgr.cfg, mgr.rollout,
-        mgr.state.policy_states)._manual_collect_enabled(mgr.rollout)
-
-    calls["mha"] = 0
-    calls["gae"] = 0
-    out = update(mgr)
-    loss = np.asarray(out.metrics.metrics["Loss"].mean)
-    assert calls["mha"] > 0, (
-        "entity-attention kernel did not route inside the collect region")
-    assert calls["gae"] > 0, (
-        "GAE kernel did not route inside the collect region")
-    assert np.isfinite(loss).all()
 
 
 def test_manual_collect_gate_conditions(eight_devices):

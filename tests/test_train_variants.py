@@ -162,7 +162,7 @@ def test_continuous_action_training():
 
     sim_fns = {"init": base_sim["init"], "step": step_fn}
 
-    import flax.linen as nn
+    from madrona_learn_tpu import nn
 
     class SteerActor(nn.Module):
         cfg: mlt.ContinuousActionsConfig
